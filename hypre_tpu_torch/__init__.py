@@ -1,0 +1,27 @@
+"""hypre_tpu_torch — the PyTorch and CUDA port of ``hypre_tpu``.
+
+The JAX package ``hypre_tpu`` beside it is the reference; this package
+runs the same algorithms on an NVIDIA GPU.  Host setup (strength,
+coarsening, interpolation, RAP) is the same numpy/OpenMP code; the
+solve phase is PyTorch tensors on the card, with the TPU's Pallas
+kernels replaced by hand-written CUDA kernels (``csrc/*.cu``).
+
+It imports torch, numpy and scipy, never jax and nothing of
+``hypre_tpu``.  Entry points run on ``cuda`` unless the caller asks for
+the CPU with ``set_config(Config(device="cpu"))``.
+
+Subpackages
+-----------
+core     — config (dtype, device), timing, error state
+gen      — problem generators (Laplacians)
+setup    — host AMG setup: strength, PMIS/HMIS, direct and ext+i
+           interpolation, l1 norms
+csrc     — host OpenMP setup kernels and the CUDA solve kernels
+ops      — solve-phase operators: stencil, CSR, dense
+solvers  — BoomerAMG (V-cycle) and PCG
+convert  — carries a hypre_tpu hierarchy (as numpy arrays) across
+"""
+
+__version__ = "0.1.0"
+
+from hypre_tpu_torch.core.config import Config, get_config, set_config  # noqa: F401

@@ -1,0 +1,130 @@
+"""Carry a hypre_tpu AMG hierarchy across to the port.
+
+The port imports nothing of hypre_tpu, so the caller hands over the
+reference hierarchy's arrays as numpy (``np.asarray`` of each field)
+and this module rebuilds them as the port's operators:
+
+* StencilOp grid and entries → StencilOp;
+* GST-ELL ``base``/``locs``/``vals`` → CsrMatrix, by the addressing of
+  ``gstell_matvec_reference`` (hypre_tpu/ops/gstell.py:843-853): slot
+  ``s = 8g + sublane`` of chunk ``ch`` in step ``t`` reads column
+  ``base[t, ch, g, sublane] * 128 + locs[t, ch, s, lane]`` for row
+  ``(t * CH + ch) * 128 + lane``; zero values and rows past ``n_rows``
+  are padding and are dropped;
+* ELL ``cols``/``vals`` (slot-major, ``[width, n_rows]``), DIA
+  ``offsets``/``vals`` (``vals[d, i] = A[i, i + offsets[d]]``) → CsrMatrix;
+* Dense ``vals`` (128-padded) → DenseMatrix of the logical shape;
+* the coarse LU: JAX's ``lu_factor`` pivots are 0-based, torch's
+  ``lu_solve`` takes 1-based LAPACK pivots, so they are shifted by one.
+
+Each operator is given as a dict with a ``kind`` key ("stencil",
+"gstell", "ell", "dia", "dense") and that format's arrays.
+"""
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from hypre_tpu_torch.core.config import get_config, get_device
+from hypre_tpu_torch.ops.formats import DenseMatrix, SparseOp
+from hypre_tpu_torch.ops.spmv import csr_from_scipy
+from hypre_tpu_torch.ops.stencil import stencil_op
+from hypre_tpu_torch.solvers.amg import AmgHierarchy, AmgLevel
+
+
+def _coo_to_csr(rows, cols, vals, n_rows, n_cols) -> sp.csr_matrix:
+    keep = (vals != 0) & (rows < n_rows) & (cols < n_cols)
+    A = sp.csr_matrix((vals[keep], (rows[keep], cols[keep])),
+                      shape=(n_rows, n_cols))
+    A.sum_duplicates()
+    return A
+
+
+def scipy_from_gstell(base, locs, vals, n_rows, n_cols) -> sp.csr_matrix:
+    base = np.asarray(base, dtype=np.int64)          # [steps, CH, G, 8]
+    locs = np.asarray(locs, dtype=np.int64)          # [steps, CH, 8G, 128]
+    vals = np.asarray(vals, dtype=np.float64)
+    n_steps, ch_step, n_slots, lanes = locs.shape
+    cols = base.reshape(n_steps, ch_step, n_slots, 1) * 128 + locs
+    chunk = np.arange(n_steps * ch_step).reshape(n_steps, ch_step, 1, 1)
+    rows = chunk * lanes + np.arange(lanes).reshape(1, 1, 1, lanes)
+    rows = np.broadcast_to(rows, locs.shape)
+    return _coo_to_csr(rows.ravel(), cols.ravel(), vals.ravel(),
+                       n_rows, n_cols)
+
+
+def scipy_from_ell(cols, vals, n_cols) -> sp.csr_matrix:
+    cols = np.asarray(cols, dtype=np.int64)          # [width, n_rows]
+    vals = np.asarray(vals, dtype=np.float64)
+    n_rows = cols.shape[1]
+    rows = np.broadcast_to(np.arange(n_rows), cols.shape)
+    return _coo_to_csr(rows.ravel(), cols.ravel(), vals.ravel(),
+                       n_rows, n_cols)
+
+
+def scipy_from_dia(offsets, vals, n_cols) -> sp.csr_matrix:
+    vals = np.asarray(vals, dtype=np.float64)        # [n_diags, n_rows]
+    n_rows = vals.shape[1]
+    rows = np.broadcast_to(np.arange(n_rows), vals.shape)
+    cols = rows + np.asarray(offsets, dtype=np.int64)[:, None]
+    ok = (cols >= 0) & (cols < n_cols)
+    return _coo_to_csr(rows[ok], cols[ok], vals[ok], n_rows, n_cols)
+
+
+def operator_from_numpy(op: dict, dtype=None, device=None) -> SparseOp:
+    """One reference operator (a dict of numpy arrays) as a port op."""
+    dtype = dtype or get_config().real_dtype
+    device = device if device is not None else get_device()
+    kind = op["kind"]
+    if kind == "stencil":
+        return stencil_op(op["grid"], op["entries"], dtype=dtype)
+    if kind == "dense":
+        v = np.array(op["vals"])[:op["n_rows"], :op["n_cols"]]
+        return DenseMatrix(vals=torch.as_tensor(v, dtype=dtype,
+                                                device=device))
+    if kind == "gstell":
+        A = scipy_from_gstell(op["base"], op["locs"], op["vals"],
+                              op["n_rows"], op["n_cols"])
+    elif kind == "ell":
+        A = scipy_from_ell(op["cols"], op["vals"], op["n_cols"])
+    elif kind == "dia":
+        A = scipy_from_dia(op["offsets"], op["vals"], op["n_cols"])
+    else:
+        raise ValueError(f"unknown operator kind {kind!r}")
+    return csr_from_scipy(A, dtype, device)
+
+
+def lu_pivots_from_jax(piv) -> torch.Tensor:
+    """0-based pivots of jax.scipy.linalg.lu_factor → torch's 1-based."""
+    return torch.as_tensor(np.asarray(piv, dtype=np.int64) + 1,
+                           dtype=torch.int32)
+
+
+def hierarchy_from_numpy(levels, c_lu, c_piv, relax_weight: float = 1.0,
+                         num_sweeps: int = 1, dtype=None,
+                         device=None) -> AmgHierarchy:
+    """Build the port's AmgHierarchy from a reference hierarchy.
+
+    levels: one dict per level with "A" (an operator dict), "P" and
+    "R" (operator dicts, None on the coarsest level) and "dinv" (numpy
+    vector, None on the coarsest level).  c_lu, c_piv: the reference's
+    coarse LU factors and its 0-based pivots."""
+    dtype = dtype or get_config().real_dtype
+    device = device if device is not None else get_device()
+
+    def op(d):
+        return None if d is None else operator_from_numpy(d, dtype, device)
+
+    out = []
+    for lvl in levels:
+        dinv = lvl.get("dinv")
+        out.append(AmgLevel(
+            A=op(lvl["A"]), P=op(lvl.get("P")), R=op(lvl.get("R")),
+            dinv=(None if dinv is None else torch.as_tensor(
+                np.array(dinv), dtype=dtype, device=device))))
+    return AmgHierarchy(
+        levels=tuple(out),
+        c_lu=torch.as_tensor(np.array(c_lu), dtype=dtype, device=device),
+        c_piv=lu_pivots_from_jax(c_piv).to(device),
+        relax_weight=relax_weight, num_sweeps=num_sweeps)

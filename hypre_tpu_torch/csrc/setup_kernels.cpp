@@ -1,0 +1,706 @@
+// Native host setup kernels for hypre_tpu_torch.
+//
+// Host OpenMP C++, not device code: the AMG setup's irregular graph
+// algorithms over CSR (strength of connection, PMIS and the HMIS
+// first pass, direct and ext+i interpolation, truncation, SpGEMM,
+// transpose, l1 norms, the stencil generator).  This is the port's own
+// copy of the subset of hypre_tpu/csrc/setup_kernels.cpp that the
+// out.14 path calls, kept byte-for-byte in every function body so the
+// two packages build the same hierarchy bit for bit.  The reference
+// semantics are hypre's (src/parcsr_ls/par_strength.c, par_coarsen.c,
+// par_interp.c, par_lr_interp.c); every kernel has a vectorized-numpy
+// twin in hypre_tpu_torch/setup/.  Built with g++ by csrc/build.py and
+// loaded with ctypes.
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <numeric>
+#include <vector>
+
+#ifdef _OPENMP
+#include <omp.h>
+#endif
+
+namespace {
+constexpr int32_t C_PT = 1;
+constexpr int32_t F_PT = -1;
+constexpr int32_t SF_PT = -3;
+}  // namespace
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// Classical Ruge-Stüben first pass (the HMIS interior pass,
+// ref: par_coarsen.c:911-1870).  Greedy with bucket lists; serial by
+// nature (priority updates), O(nnz).
+// ---------------------------------------------------------------------------
+void rs_first_pass(int64_t n,
+                   const int64_t* s_indptr, const int32_t* s_indices,
+                   const int64_t* st_indptr, const int32_t* st_indices,
+                   int32_t* cf) {
+  std::vector<int64_t> measure(n);
+  int64_t max_measure = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    measure[i] = st_indptr[i + 1] - st_indptr[i];
+    if (measure[i] > max_measure) max_measure = measure[i];
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    if (measure[i] == 0 && s_indptr[i + 1] == s_indptr[i]) {
+      cf[i] = SF_PT;
+    } else {
+      cf[i] = 0;
+    }
+  }
+
+  int64_t cap = max_measure + n + 2;
+  std::vector<int64_t> head(cap, -1), nxt(n, -1), prv(n, -1);
+  std::vector<int64_t> where(n, -1);
+
+  auto bucket_insert = [&](int64_t i, int64_t m) {
+    nxt[i] = head[m];
+    prv[i] = -1;
+    if (head[m] >= 0) prv[head[m]] = i;
+    head[m] = i;
+    where[i] = m;
+  };
+  auto bucket_remove = [&](int64_t i) {
+    int64_t m = where[i];
+    if (prv[i] >= 0) nxt[prv[i]] = nxt[i]; else head[m] = nxt[i];
+    if (nxt[i] >= 0) prv[nxt[i]] = prv[i];
+    where[i] = -1;
+  };
+
+  for (int64_t i = 0; i < n; ++i)
+    if (cf[i] == 0) bucket_insert(i, measure[i]);
+
+  int64_t top = max_measure;
+  while (true) {
+    while (top > 0 && head[top] < 0) --top;
+    if (top <= 0) break;
+    int64_t i = head[top];
+    bucket_remove(i);
+    cf[i] = C_PT;
+    for (int64_t p = st_indptr[i]; p < st_indptr[i + 1]; ++p) {
+      int64_t j = st_indices[p];
+      if (cf[j] != 0) continue;
+      cf[j] = F_PT;
+      bucket_remove(j);
+      for (int64_t q = s_indptr[j]; q < s_indptr[j + 1]; ++q) {
+        int64_t k = s_indices[q];
+        if (cf[k] != 0) continue;
+        bucket_remove(k);
+        measure[k] += 1;
+        if (measure[k] >= cap) measure[k] = cap - 1;
+        bucket_insert(k, measure[k]);
+        if (measure[k] > top) top = measure[k];
+      }
+    }
+    for (int64_t q = s_indptr[i]; q < s_indptr[i + 1]; ++q) {
+      int64_t k = s_indices[q];
+      if (cf[k] != 0) continue;
+      bucket_remove(k);
+      if (measure[k] > 0) measure[k] -= 1;
+      bucket_insert(k, measure[k]);
+    }
+  }
+  for (int64_t i = 0; i < n; ++i)
+    if (cf[i] == 0) cf[i] = F_PT;
+}
+
+// ---------------------------------------------------------------------------
+// Strength of connection mask (hypre_BoomerAMGCreateS semantics,
+// ref: par_strength.c:230-420).  Writes a 0/1 byte per CSR entry of A.
+// ---------------------------------------------------------------------------
+void strength_mask(int64_t n,
+                   const int64_t* indptr, const int32_t* indices,
+                   const double* data,
+                   double theta, double max_row_sum, int32_t abs_soc,
+                   uint8_t* strong /* out, nnz bytes */) {
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t b = indptr[i], e = indptr[i + 1];
+    double diag = 0.0, row_sum = 0.0, abs_row_sum = 0.0;
+    double mx = -INFINITY, mn = INFINITY, amx = 0.0;
+    for (int64_t p = b; p < e; ++p) {
+      const double v = data[p];
+      row_sum += v;
+      abs_row_sum += std::fabs(v);
+      if (indices[p] == i) {
+        diag = v;
+      } else {
+        if (v > mx) mx = v;
+        if (v < mn) mn = v;
+        const double av = std::fabs(v);
+        if (av > amx) amx = av;
+      }
+    }
+    // abs_soc (CreateSabs, par_strength.c) weak-row rule uses the
+    // ABS row sum: weak iff sum|a| < |diag| * (2 - max_row_sum)
+    const bool weak_all = (max_row_sum < 1.0)
+        && (abs_soc
+                ? (abs_row_sum < std::fabs(diag) * (2.0 - max_row_sum))
+                : (std::fabs(row_sum) > std::fabs(diag) * max_row_sum));
+    if (weak_all) {
+      std::memset(strong + b, 0, (size_t)(e - b));
+      continue;
+    }
+    if (abs_soc) {
+      const double th = theta * amx;
+      for (int64_t p = b; p < e; ++p)
+        strong[p] = (indices[p] != i) && (std::fabs(data[p]) >= th);
+    } else if (diag < 0.0) {
+      const double th = theta * mx;
+      for (int64_t p = b; p < e; ++p)
+        strong[p] = (indices[p] != i) && (data[p] > th);
+    } else {
+      const double th = theta * mn;
+      for (int64_t p = b; p < e; ++p)
+        strong[p] = (indices[p] != i) && (data[p] < th);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// PMIS coarsening rounds (ref: par_coarsen.c:2101 PMISHost; the round
+// structure here replicates setup/coarsen.py:pmis exactly so numpy and
+// native paths yield identical CF splittings).
+//   measure: ST-degree + deterministic hash, precomputed by the caller.
+// ---------------------------------------------------------------------------
+void pmis(int64_t n,
+          const int64_t* s_indptr, const int32_t* s_indices,
+          double* measure /* modified in place */,
+          int32_t* cf /* out */) {
+  std::vector<uint8_t> cand(n), out(n);
+  for (int64_t i = 0; i < n; ++i) {
+    if (s_indptr[i + 1] == s_indptr[i]) {
+      cf[i] = SF_PT;
+      measure[i] = 0.0;
+    } else {
+      cf[i] = 0;
+    }
+  }
+  int64_t n_unassigned = 0;
+  for (int64_t i = 0; i < n; ++i) n_unassigned += (cf[i] == 0);
+
+  while (n_unassigned > 0) {
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < n; ++i) {
+      cand[i] = (cf[i] == 0) && (measure[i] > 1.0);
+      out[i] = 0;
+    }
+    // edge competitions: for a strong edge (i, j) between candidates
+    // the smaller measure loses its candidacy
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < n; ++i) {
+      if (!cand[i]) continue;
+      for (int64_t p = s_indptr[i]; p < s_indptr[i + 1]; ++p) {
+        const int32_t j = s_indices[p];
+        if (!cand[j]) continue;
+        if (measure[i] > measure[j]) out[j] = 1;
+        else if (measure[j] > measure[i]) out[i] = 1;
+      }
+    }
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < n; ++i) {
+      if (cand[i] && !out[i]) cf[i] = C_PT;
+      else if (cf[i] == 0 && measure[i] < 1.0) cf[i] = F_PT;
+    }
+    // unassigned, not new-C, not low: F if any strong C dependency
+    int64_t assigned = 0;
+#pragma omp parallel for schedule(static) reduction(+:assigned)
+    for (int64_t i = 0; i < n; ++i) {
+      if (cf[i] == 0) {
+        bool has_c = false;
+        for (int64_t p = s_indptr[i]; p < s_indptr[i + 1]; ++p) {
+          if (cf[s_indices[p]] == C_PT) { has_c = true; break; }
+        }
+        if (has_c) cf[i] = F_PT;
+      }
+      if (cf[i] != 0 && measure[i] != 0.0) {
+        measure[i] = 0.0;
+      }
+      assigned += (cf[i] != 0);
+    }
+    n_unassigned = n - assigned;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Direct interpolation (type 3; hypre_BoomerAMGBuildDirInterp,
+// ref: par_interp.c:1948-2500).  Two-pass CSR build: pass==0 fills
+// p_indptr only; pass==1 fills indices (coarse-numbered) and data.
+// ---------------------------------------------------------------------------
+void direct_interp(int64_t n, int32_t pass,
+                   const int64_t* a_indptr, const int32_t* a_indices,
+                   const double* a_data, const uint8_t* strong,
+                   const int32_t* cf, const int32_t* cmap,
+                   int64_t* p_indptr,
+                   int32_t* p_indices, double* p_data) {
+  if (pass == 0) {
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < n; ++i) {
+      int64_t cnt = 0;
+      if (cf[i] == C_PT) {
+        cnt = 1;
+      } else if (cf[i] != 0) {  // F and SF rows
+        for (int64_t p = a_indptr[i]; p < a_indptr[i + 1]; ++p)
+          if (strong[p] && cf[a_indices[p]] == C_PT) ++cnt;
+      }
+      p_indptr[i + 1] = cnt;
+    }
+    p_indptr[0] = 0;
+    for (int64_t i = 0; i < n; ++i) p_indptr[i + 1] += p_indptr[i];
+    return;
+  }
+#pragma omp parallel for schedule(dynamic, 512)
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t w = p_indptr[i];
+    if (cf[i] == C_PT) {
+      p_indices[w] = cmap[i];
+      p_data[w] = 1.0;
+      continue;
+    }
+    if (cf[i] == 0) continue;
+    double diag = 0.0;
+    double sum_n_neg = 0.0, sum_n_pos = 0.0;
+    double sum_p_neg = 0.0, sum_p_pos = 0.0;
+    const int64_t b = a_indptr[i], e = a_indptr[i + 1];
+    for (int64_t p = b; p < e; ++p) {
+      const double v = a_data[p];
+      if (a_indices[p] == i) { diag = v; continue; }
+      if (v < 0) sum_n_neg += v; else if (v > 0) sum_n_pos += v;
+      if (strong[p] && cf[a_indices[p]] == C_PT) {
+        if (v < 0) sum_p_neg += v; else if (v > 0) sum_p_pos += v;
+      }
+    }
+    const double alfa =
+        (sum_p_neg != 0.0) ? sum_n_neg / (sum_p_neg * diag) : 1.0;
+    const double beta =
+        (sum_p_pos != 0.0) ? sum_n_pos / (sum_p_pos * diag) : 1.0;
+    for (int64_t p = b; p < e; ++p) {
+      if (!strong[p]) continue;
+      const int32_t j = a_indices[p];
+      if (cf[j] != C_PT) continue;
+      const double v = a_data[p];
+      p_indices[w] = cmap[j];
+      p_data[w] = (v < 0) ? -alfa * v : -beta * v;
+      ++w;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Extended+i interpolation (type 6; hypre_BoomerAMGBuildExtPIInterp,
+// ref: par_lr_interp.c:1024-1800).  Distance-2 pattern via per-thread
+// marker arrays.  pass==0: row counts; pass==1: fill (columns sorted
+// ascending in COARSE numbering; per-row accumulation is sequential so
+// results are deterministic).
+// ---------------------------------------------------------------------------
+void extpi_interp(int64_t n, int32_t pass,
+                  const int64_t* a_indptr, const int32_t* a_indices,
+                  const double* a_data, const uint8_t* strong,
+                  const int32_t* cf, const int32_t* cmap,
+                  const double* diag /* a_ii per row */,
+                  int64_t* p_indptr,
+                  int32_t* p_indices, double* p_data) {
+#pragma omp parallel
+  {
+    // marker[j] = stamp when j entered this row's pattern C-hat
+    std::vector<int64_t> marker(n, -1);
+    std::vector<int32_t> patt;  // fine indices of C-hat, insertion order
+    std::vector<double> acc;    // accumulated P values per pattern slot
+    patt.reserve(64);
+    acc.reserve(64);
+
+#pragma omp for schedule(dynamic, 256)
+    for (int64_t i = 0; i < n; ++i) {
+      if (cf[i] == C_PT) {
+        if (pass == 0) {
+          p_indptr[i + 1] = 1;
+        } else {
+          p_indices[p_indptr[i]] = cmap[i];
+          p_data[p_indptr[i]] = 1.0;
+        }
+        continue;
+      }
+      if (cf[i] == 0 || cf[i] == SF_PT) {
+        if (pass == 0) p_indptr[i + 1] = 0;
+        continue;
+      }
+      // ---- build C-hat_i: strong C of i, plus strong C of each
+      // strong F neighbor k of i ----
+      patt.clear();
+      const int64_t b = a_indptr[i], e = a_indptr[i + 1];
+      for (int64_t p = b; p < e; ++p) {
+        if (!strong[p]) continue;
+        const int32_t j = a_indices[p];
+        if (cf[j] == C_PT) {
+          if (marker[j] != i) {
+            marker[j] = i;
+            patt.push_back(j);
+          }
+        } else if (cf[j] == F_PT) {
+          for (int64_t q = a_indptr[j]; q < a_indptr[j + 1]; ++q) {
+            if (!strong[q]) continue;
+            const int32_t l = a_indices[q];
+            if (cf[l] == C_PT && marker[l] != i) {
+              marker[l] = i;
+              patt.push_back(l);
+            }
+          }
+        }
+      }
+      if (pass == 0) {
+        p_indptr[i + 1] = (int64_t)patt.size();
+        continue;
+      }
+      std::sort(patt.begin(), patt.end());
+      const int64_t w0 = p_indptr[i];
+      acc.assign(patt.size(), 0.0);
+      // encode slot as -(s + 2): distinct from the -1 init value and
+      // from any row stamp (>= 0).  slot(j) = -marker[j] - 2.
+      for (size_t s = 0; s < patt.size(); ++s)
+        marker[patt[s]] = -((int64_t)s + 2);
+      double d = diag[i];
+      for (int64_t p = b; p < e; ++p) {
+        const int32_t j = a_indices[p];
+        if (j == i) continue;
+        const double aij = a_data[p];
+        if (marker[j] <= -2) {
+          acc[-marker[j] - 2] += aij;  // direct part: j in C-hat
+        } else if (strong[p] && cf[j] == F_PT) {
+          // distribute over row j: denom = sum of a_jl with l in
+          // C-hat ∪ {i}, sign(a_jj) * a_jl < 0
+          const double sgn = (diag[j] > 0) - (diag[j] < 0);
+          double denom = 0.0;
+          for (int64_t q = a_indptr[j]; q < a_indptr[j + 1]; ++q) {
+            const int32_t l = a_indices[q];
+            if (l == j) continue;
+            const double ajl = a_data[q];
+            if (sgn * ajl >= 0) continue;
+            if (marker[l] <= -2 || l == (int32_t)i) denom += ajl;
+          }
+          if (denom == 0.0) {
+            d += aij;
+          } else {
+            const double dist = aij / denom;
+            for (int64_t q = a_indptr[j]; q < a_indptr[j + 1]; ++q) {
+              const int32_t l = a_indices[q];
+              if (l == j) continue;
+              const double ajl = a_data[q];
+              if (sgn * ajl >= 0) continue;
+              if (marker[l] <= -2) acc[-marker[l] - 2] += dist * ajl;
+              else if (l == (int32_t)i) d += dist * ajl;
+            }
+          }
+        } else if (cf[j] != SF_PT) {
+          d += aij;  // weak connection folds into the diagonal
+        }
+      }
+      const double inv = (d != 0.0) ? (-1.0 / d) : 1.0;
+      for (size_t s = 0; s < patt.size(); ++s) {
+        p_indices[w0 + (int64_t)s] = cmap[patt[s]];
+        p_data[w0 + (int64_t)s] = acc[s] * inv;
+        marker[patt[s]] = i;  // restore row stamp
+      }
+    }
+  }
+  if (pass == 0) {
+    p_indptr[0] = 0;
+    for (int64_t i = 0; i < n; ++i) p_indptr[i + 1] += p_indptr[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Interpolation truncation (hypre_ParCSRMatrixTruncate semantics,
+// ref: par_csr_matrix.c:2874): drop entries below trunc_factor *
+// row-max-abs, keep the max_elmts largest by magnitude (stable on
+// ties), rescale survivors to preserve the row sum.  Two-pass.
+// ---------------------------------------------------------------------------
+void truncate_interp(int64_t n, int32_t pass,
+                     const int64_t* indptr, const int32_t* indices,
+                     const double* data,
+                     double trunc_factor, int64_t max_elmts,
+                     int64_t* t_indptr,
+                     int32_t* t_indices, double* t_data) {
+#pragma omp parallel
+  {
+    std::vector<int64_t> ord;
+    std::vector<uint8_t> keep;
+#pragma omp for schedule(dynamic, 512)
+    for (int64_t i = 0; i < n; ++i) {
+      const int64_t b = indptr[i], e = indptr[i + 1];
+      const int64_t m = e - b;
+      keep.assign(m, 1);
+      if (trunc_factor > 0.0) {
+        double mx = 0.0;
+        for (int64_t p = b; p < e; ++p)
+          mx = std::max(mx, std::fabs(data[p]));
+        const double th = trunc_factor * mx;
+        for (int64_t p = b; p < e; ++p)
+          if (std::fabs(data[p]) < th) keep[p - b] = 0;
+      }
+      if (max_elmts > 0 && m > max_elmts) {
+        ord.resize(m);
+        std::iota(ord.begin(), ord.end(), (int64_t)0);
+        std::stable_sort(ord.begin(), ord.end(),
+                         [&](int64_t x, int64_t y) {
+                           return std::fabs(data[b + x]) >
+                                  std::fabs(data[b + y]);
+                         });
+        for (int64_t r = max_elmts; r < m; ++r) keep[ord[r]] = 0;
+      }
+      int64_t cnt = 0;
+      double row_sum = 0.0, kept_sum = 0.0;
+      for (int64_t p = b; p < e; ++p) {
+        row_sum += data[p];
+        if (keep[p - b]) { ++cnt; kept_sum += data[p]; }
+      }
+      if (pass == 0) {
+        t_indptr[i + 1] = cnt;
+        continue;
+      }
+      const double scale = (kept_sum != 0.0) ? row_sum / kept_sum : 1.0;
+      int64_t w = t_indptr[i];
+      for (int64_t p = b; p < e; ++p) {
+        if (!keep[p - b]) continue;
+        t_indices[w] = indices[p];
+        t_data[w] = data[p] * scale;
+        ++w;
+      }
+    }
+  }
+  if (pass == 0) {
+    t_indptr[0] = 0;
+    for (int64_t i = 0; i < n; ++i) t_indptr[i + 1] += t_indptr[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Row-parallel SpGEMM C = A @ B with per-thread dense accumulators
+// (the hash-free analog of the reference's device SpGEMM binning,
+// ref: src/seq_mv/csr_spgemm_device.c:15 — here a scatter array per
+// thread replaces the per-warp hash table).  Two-pass; output columns
+// ascend because the scatter array is swept in B-column order... no:
+// insertion order, then per-row sort in pass 1 fill.
+// ---------------------------------------------------------------------------
+void spgemm(int64_t n_rows, int64_t b_cols, int32_t pass,
+            const int64_t* a_indptr, const int32_t* a_indices,
+            const double* a_data,
+            const int64_t* b_indptr, const int32_t* b_indices,
+            const double* b_data,
+            int64_t* c_indptr, int32_t* c_indices, double* c_data) {
+#pragma omp parallel
+  {
+    std::vector<int64_t> next(b_cols, -1);   // stamp per column
+    std::vector<double> sums(b_cols, 0.0);
+    std::vector<int32_t> cols;
+    cols.reserve(256);
+#pragma omp for schedule(dynamic, 128)
+    for (int64_t i = 0; i < n_rows; ++i) {
+      cols.clear();
+      for (int64_t p = a_indptr[i]; p < a_indptr[i + 1]; ++p) {
+        const int32_t k = a_indices[p];
+        const double av = a_data[p];
+        for (int64_t q = b_indptr[k]; q < b_indptr[k + 1]; ++q) {
+          const int32_t j = b_indices[q];
+          if (next[j] != i) {
+            next[j] = i;
+            sums[j] = 0.0;
+            cols.push_back(j);
+          }
+          sums[j] += av * b_data[q];
+        }
+      }
+      if (pass == 0) {
+        c_indptr[i + 1] = (int64_t)cols.size();
+        continue;
+      }
+      std::sort(cols.begin(), cols.end());
+      int64_t w = c_indptr[i];
+      for (const int32_t j : cols) {
+        c_indices[w] = j;
+        c_data[w] = sums[j];
+        ++w;
+      }
+    }
+  }
+  if (pass == 0) {
+    c_indptr[0] = 0;
+    for (int64_t i = 0; i < n_rows; ++i) c_indptr[i + 1] += c_indptr[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// CSR transpose (counting sort over columns) — used for R = P^T and
+// the PMIS measure's ST degrees without scipy's COO round trip.
+// ---------------------------------------------------------------------------
+void csr_transpose(int64_t n_rows, int64_t n_cols,
+                   const int64_t* indptr, const int32_t* indices,
+                   const double* data,
+                   int64_t* t_indptr, int32_t* t_indices, double* t_data) {
+  const int64_t nnz = indptr[n_rows];
+  std::vector<int64_t> cnt(n_cols + 1, 0);
+  for (int64_t p = 0; p < nnz; ++p) ++cnt[indices[p] + 1];
+  for (int64_t j = 0; j < n_cols; ++j) cnt[j + 1] += cnt[j];
+  std::memcpy(t_indptr, cnt.data(), (size_t)(n_cols + 1) * sizeof(int64_t));
+  std::vector<int64_t> w(cnt.begin(), cnt.end() - 1);
+  for (int64_t i = 0; i < n_rows; ++i) {
+    for (int64_t p = indptr[i]; p < indptr[i + 1]; ++p) {
+      const int64_t dst = w[indices[p]]++;
+      t_indices[dst] = (int32_t)i;
+      if (data) t_data[dst] = data[p];
+    }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// Stencil-matrix CSR generator (semantics of hypre's GenerateLaplacian
+// family, ref: src/parcsr_ls/par_laplace.c:63): x-fastest ordering,
+// Dirichlet truncation at the boundary.  Offsets must be pre-sorted by
+// linear displacement so columns come out sorted.  pass 0: indptr;
+// pass 1: indices + data.
+// ---------------------------------------------------------------------------
+void stencil_csr(int64_t nx, int64_t ny, int64_t nz, int32_t n_ent,
+                 int32_t pass,
+                 const int32_t* dx, const int32_t* dy, const int32_t* dz,
+                 const double* v,
+                 int64_t* indptr, int32_t* indices, double* data) {
+  const int64_t nxy = nx * ny;
+#pragma omp parallel for schedule(static) collapse(2)
+  for (int64_t iz = 0; iz < nz; ++iz) {
+    for (int64_t iy = 0; iy < ny; ++iy) {
+      const int64_t row0 = iy * nx + iz * nxy;
+      for (int64_t ix = 0; ix < nx; ++ix) {
+        const int64_t i = row0 + ix;
+        int64_t w = (pass == 0) ? 0 : indptr[i];
+        for (int32_t k = 0; k < n_ent; ++k) {
+          const int64_t jx = ix + dx[k], jy = iy + dy[k], jz = iz + dz[k];
+          if (jx < 0 || jx >= nx || jy < 0 || jy >= ny
+              || jz < 0 || jz >= nz) continue;
+          if (pass == 0) {
+            ++w;
+          } else {
+            indices[w] = (int32_t)(jx + jy * nx + jz * nxy);
+            data[w] = v[k];
+            ++w;
+          }
+        }
+        if (pass == 0) indptr[i + 1] = w;
+      }
+    }
+  }
+  if (pass == 0) {
+    indptr[0] = 0;
+    for (int64_t i = 0, n = nx * ny * nz; i < n; ++i)
+      indptr[i + 1] += indptr[i];
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// Boolean-mask CSR filter: S = entries of A where mask is set (data
+// forced to 1.0) — builds the strength pattern from strength_mask's
+// output without numpy round trips.
+// ---------------------------------------------------------------------------
+void mask_to_csr(int64_t n, int32_t pass,
+                 const int64_t* indptr, const int32_t* indices,
+                 const uint8_t* mask,
+                 int64_t* s_indptr, int32_t* s_indices) {
+  if (pass == 0) {
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < n; ++i) {
+      int64_t cnt = 0;
+      for (int64_t p = indptr[i]; p < indptr[i + 1]; ++p)
+        cnt += (mask[p] != 0);
+      s_indptr[i + 1] = cnt;
+    }
+    s_indptr[0] = 0;
+    for (int64_t i = 0; i < n; ++i) s_indptr[i + 1] += s_indptr[i];
+    return;
+  }
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t w = s_indptr[i];
+    for (int64_t p = indptr[i]; p < indptr[i + 1]; ++p)
+      if (mask[p]) s_indices[w++] = indices[p];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Smoother l1 row norms (twin of setup/l1norms.py; semantics of
+// hypre_ParCSRComputeL1Norms, ref: src/parcsr_ls/ams.c:628-760).
+// option 1: full-row l1; option 4: |a_ii| + 0.5*offproc-l1 with the
+// Remark-6.2 truncation; option 5: diagonal (zeros -> 1).
+// data is f32 or f64 (is_f32 flag) to avoid a host-side copy.
+// ---------------------------------------------------------------------------
+void l1_norms(int64_t n, int32_t option, int32_t is_f32,
+              const int64_t* indptr, const int32_t* indices,
+              const void* data, const uint8_t* offproc_mask,
+              double* d) {
+  const float* df = (const float*)data;
+  const double* dd = (const double*)data;
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) {
+    double diag = 0.0, sum = 0.0, offp = 0.0;
+    for (int64_t p = indptr[i]; p < indptr[i + 1]; ++p) {
+      const double v = is_f32 ? (double)df[p] : dd[p];
+      if (indices[p] == i) diag = v;
+      sum += std::abs(v);
+      if (offproc_mask && offproc_mask[p]) offp += std::abs(v);
+    }
+    double r;
+    if (option == 5) {
+      r = (diag == 0.0) ? 1.0 : diag;
+      d[i] = r;
+      continue;
+    } else if (option == 1) {
+      r = sum;
+    } else {  // option 4
+      r = std::abs(diag) + 0.5 * offp;
+      if (r <= (4.0 / 3.0) * std::abs(diag)) r = std::abs(diag);
+    }
+    if (diag < 0) r = -r;
+    if (r == 0.0) r = 1.0;
+    d[i] = r;
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// PMIS measure: transpose-degree of S plus the splitmix64 hash of the
+// global row id (twin of setup/coarsen.py:47-53 + utils.pmis_hash).
+// ---------------------------------------------------------------------------
+void pmis_measure(int64_t n, int64_t nnz, const int32_t* indices,
+                  const int64_t* global_ids, int64_t seed,
+                  double* measure) {
+  std::vector<int64_t> deg(n, 0);
+  // column-degree count: per-thread partials merged (no atomics)
+#ifdef _OPENMP
+#pragma omp parallel
+  {
+    std::vector<int64_t> local(n, 0);
+#pragma omp for schedule(static)
+    for (int64_t p = 0; p < nnz; ++p) ++local[indices[p]];
+#pragma omp critical
+    for (int64_t i = 0; i < n; ++i) deg[i] += local[i];
+  }
+#else
+  for (int64_t p = 0; p < nnz; ++p) ++deg[indices[p]];
+#endif
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < n; ++i) {
+    uint64_t z = ((uint64_t)global_ids[i] + (uint64_t)seed) *
+                 0x9E3779B97F4A7C15ULL;
+    z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ULL;
+    z = (z ^ (z >> 27)) * 0x94D049BB133111EBULL;
+    z = z ^ (z >> 31);
+    measure[i] = (double)deg[i] +
+                 (double)(z >> 11) / 9007199254740992.0;  // 2^53
+  }
+}
+
+}  // extern "C"

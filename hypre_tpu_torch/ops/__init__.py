@@ -1,0 +1,8 @@
+from hypre_tpu_torch.ops.formats import (  # noqa: F401
+    CsrMatrix, DenseMatrix, SparseOp, StencilOp, matvec,
+    sparse_op_from_scipy,
+)
+from hypre_tpu_torch.ops.spmv import csr_spmv, csr_spmv_plain  # noqa: F401
+from hypre_tpu_torch.ops.stencil import (  # noqa: F401
+    stencil_matvec, stencil_matvec_plain, stencil_op,
+)

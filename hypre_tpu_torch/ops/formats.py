@@ -1,0 +1,77 @@
+"""Solve-phase operator formats and the matvec dispatch.
+
+Counterpart of hypre_tpu/ops/formats.py, cut to what the port's solve
+phase stores:
+
+* ``StencilOp`` (ops/stencil.py) — level 0 of a generated stencil
+  problem, applied analytically by kernel K1;
+* ``CsrMatrix`` (ops/spmv.py) — every other stored sparse operator,
+  applied by kernel K2;
+* ``DenseMatrix`` — operators of at most 2048 rows and columns, applied
+  with one ``torch.mv`` (the reference computes these with ``jnp.dot``
+  outside any Pallas kernel, formats.py:124-127).
+
+The reference's ELL, DIA and GST-ELL formats are not carried over: CSR
+takes their place on the card (DIA's kernel is K3 in ROADMAP Queue 2).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from hypre_tpu_torch.ops.spmv import CsrMatrix, csr_from_scipy, csr_spmv
+from hypre_tpu_torch.ops.stencil import StencilOp, stencil_matvec
+
+DENSE_MAX = 2048   # dense at this many rows and columns or fewer
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseMatrix:
+    """Dense storage for small coarse-grid operators."""
+
+    vals: torch.Tensor       # (n_rows, n_cols)
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.vals.shape[0])
+
+    @property
+    def n_cols(self) -> int:
+        return int(self.vals.shape[1])
+
+    @property
+    def shape(self):
+        return (self.n_rows, self.n_cols)
+
+
+SparseOp = StencilOp | CsrMatrix | DenseMatrix
+
+
+def dense_from_scipy(A, dtype: torch.dtype, device) -> DenseMatrix:
+    return DenseMatrix(vals=torch.as_tensor(
+        np.asarray(A.toarray()), dtype=dtype, device=device))
+
+
+def matvec(A: SparseOp, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(A, StencilOp):
+        return stencil_matvec(A, x)
+    if isinstance(A, CsrMatrix):
+        return csr_spmv(A, x)
+    if isinstance(A, DenseMatrix):
+        return torch.mv(A.vals, x)
+    raise TypeError(f"matvec: unsupported operator {type(A).__name__}")
+
+
+def sparse_op_from_scipy(A, dtype: torch.dtype | None = None,
+                         device=None) -> SparseOp:
+    """Dense at 2048 rows and columns or fewer (formats.py:314), CSR
+    otherwise.  dtype and device default to the configured ones."""
+    from hypre_tpu_torch.core.config import get_config, get_device
+
+    dtype = dtype or get_config().real_dtype
+    device = device if device is not None else get_device()
+    if max(A.shape) <= DENSE_MAX and min(A.shape) > 0:
+        return dense_from_scipy(A, dtype, device)
+    return csr_from_scipy(A, dtype, device)

@@ -1,0 +1,134 @@
+"""CSR sparse matvec: the one stored sparse format of the solve phase.
+
+Counterpart of hypre_tpu/ops/gstell.py.  On the TPU, GST-ELL packed
+every stored operator into lane-shuffle slots because a TPU gather runs
+at scalar speed (gstell.py:3-8).  A GPU gathers through its caches, so
+the port keeps CSR as hypre's own device SpMV does
+(src/seq_mv/csr_spmv_device.c:381) and serves A on levels 1-4 and every
+P and R that is not dense with it.  Kernel K2 in ``csrc/csr_spmv.cu``
+gives each row a fixed group of threads sized by the mean row nnz, as
+hypre does (csr_spmv_device.c:300-306).
+
+``csr_spmv`` launches the kernel for a CUDA tensor and runs the plain
+version ``csr_spmv_plain`` for a CPU tensor; there is no fallback
+between the two.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from hypre_tpu_torch.core.errors import HypreTpuError
+
+
+def group_size(n_rows: int, nnz: int) -> int:
+    """Threads per row for K2: the power of two in [2, 32] nearest
+    below the mean row nnz (hypre's row-group choice)."""
+    mean = nnz / max(n_rows, 1)
+    g = 2
+    while g < 32 and 2 * g <= mean:
+        g *= 2
+    return g
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrMatrix:
+    """indptr int64[n_rows+1], indices int32[nnz], values real[nnz]
+    (columns sorted within each row), on one device."""
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    values: torch.Tensor
+    n_rows: int
+    n_cols: int
+    group: int
+
+    @property
+    def shape(self):
+        return (self.n_rows, self.n_cols)
+
+    @property
+    def nnz(self) -> int:
+        return int(self.values.shape[0])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    def to(self, dtype: torch.dtype) -> "CsrMatrix":
+        return dataclasses.replace(self, values=self.values.to(dtype))
+
+
+def csr_from_scipy(A, dtype: torch.dtype, device) -> CsrMatrix:
+    A = A.tocsr()
+    A.sort_indices()
+    n_rows, n_cols = A.shape
+    return CsrMatrix(
+        indptr=torch.as_tensor(np.asarray(A.indptr, dtype=np.int64),
+                               device=device),
+        indices=torch.as_tensor(np.asarray(A.indices, dtype=np.int32),
+                                device=device),
+        values=torch.as_tensor(np.asarray(A.data), dtype=dtype,
+                               device=device),
+        n_rows=int(n_rows), n_cols=int(n_cols),
+        group=group_size(n_rows, A.nnz))
+
+
+def csr_spmv_plain(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2: gather x by column, scale by the
+    values, sum per row with index_add_."""
+    counts = A.indptr[1:] - A.indptr[:-1]
+    rows = torch.repeat_interleave(
+        torch.arange(A.n_rows, device=A.values.device), counts)
+    prod = torch.index_select(x.to(A.dtype), 0, A.indices) * A.values
+    y = torch.zeros(A.n_rows, dtype=A.dtype, device=A.values.device)
+    return y.index_add_(0, rows, prod)
+
+
+_KERNELS = {torch.float64: "csr_spmv_f64", torch.float32: "csr_spmv_f32"}
+
+
+@functools.cache
+def _kernel(dtype: torch.dtype):
+    """The C entry of K2 for `dtype`, built and loaded on first use."""
+    from hypre_tpu_torch.csrc.build import load_cuda
+
+    if dtype not in _KERNELS:
+        raise HypreTpuError(f"csr_spmv: unsupported {dtype}")
+    fn = getattr(load_cuda("csr_spmv.cu"), _KERNELS[dtype])
+    p = ctypes.c_void_p
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int, p, p, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def csr_spmv(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
+    """y = A x: kernel K2 for a CUDA tensor, the plain version for a CPU
+    tensor.  ``csr_spmv.launches`` counts kernel launches."""
+    if x.device.type == "cpu":
+        return csr_spmv_plain(A, x)
+    if not x.is_cuda or x.device != A.values.device:
+        raise HypreTpuError(f"csr_spmv: x on {x.device}, A on "
+                            f"{A.values.device}")
+    if x.dtype != A.dtype or x.shape != (A.n_cols,) \
+            or not x.is_contiguous():
+        raise HypreTpuError(
+            f"csr_spmv: x must be contiguous {A.dtype} of shape "
+            f"({A.n_cols},), got {x.dtype} {tuple(x.shape)}")
+    fn = _kernel(A.dtype)
+    y = torch.empty(A.n_rows, dtype=A.dtype, device=x.device)
+    err = fn(A.n_rows, A.group, A.indptr.data_ptr(), A.indices.data_ptr(),
+             A.values.data_ptr(), x.data_ptr(), y.data_ptr(),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise HypreTpuError(f"csr_spmv kernel launch failed: "
+                            f"CUDA error {err}")
+    csr_spmv.launches += 1
+    return y
+
+
+csr_spmv.launches = 0

@@ -1,0 +1,318 @@
+"""BoomerAMG: host setup + V-cycle solve on the card.
+
+Port of hypre_tpu/solvers/amg.py, cut to the branches that hypre's
+out.14 benchmark and the ij driver's solver 1 with interp 3 or 6
+reach (setup driver ref: src/parcsr_ls/par_amg_setup.c:29; cycle ref:
+par_cycle.c:23; solve ref: par_amg_solve.c:22).  The setup runs on the
+host (numpy plus the OpenMP kernels, f64) and is the reference's own
+algorithm, so the hierarchy is the same bit for bit; the solve phase
+runs eagerly on torch tensors: l1/weighted Jacobi smoothing, a V-cycle,
+and a dense LU on the coarsest level.
+
+Options of AmgConfig that the slice does not carry raise
+NotImplementedError at setup.  ``prefer_dia`` is accepted and has no
+effect: the port stores no DIA operators (kernel K3 is still to port).
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from hypre_tpu_torch.core.config import as_real, get_config, get_device
+from hypre_tpu_torch.ops.formats import SparseOp, matvec, sparse_op_from_scipy
+from hypre_tpu_torch.ops.stencil import stencil_op
+from hypre_tpu_torch.setup.coarsen import C_PT, hmis, pmis
+from hypre_tpu_torch.setup.interp import direct_interp
+from hypre_tpu_torch.setup.interp_ext import extpi_interp
+from hypre_tpu_torch.setup.l1norms import l1_norms
+from hypre_tpu_torch.setup.strength import strength_matrix
+
+
+@dataclasses.dataclass
+class AmgConfig:
+    max_levels: int = 25
+    max_coarse_size: int = 9          # ref: par_amg.c:163
+    strong_threshold: float = 0.25    # ref: par_amg.c:168
+    max_row_sum: float = 0.9          # ref: par_amg.c:172
+    coarsen_type: str = "pmis"        # GPU default (docs solvers-boomeramg.rst:61)
+    interp_type: int = 3              # direct; 6 = ext+i (hypre default)
+    trunc_factor: float = 0.0
+    p_max_elmts: int = 4              # ref: par_amg.c:182
+    relax_type: int = 18              # l1-Jacobi (GPU-friendly default here)
+    relax_weight: float = 1.0
+    num_sweeps: int = 1
+    relax_order: int = 0              # 1 = C-points first (par_amg.c:269)
+    cycle_type: str = "V"             # V, W, or F
+    agg_num_levels: int = 0           # aggressive coarsening levels
+    agg_interp_type: int = 4          # multipass (par_amg.c:194)
+    agg_trunc_factor: float = 0.0
+    agg_p_max_elmts: int = 0
+    agg_p12_trunc_factor: float = 0.0
+    agg_p12_max_elmts: int = 0
+    num_paths: int = 1
+    restr_type: int = 0               # 0: R=P^T; 1: distance-1 lAIR
+    nongalerk_tol: tuple = ()         # per-level drop tolerances
+    nongalerk_tol_all: float = 0.0
+    additive: int = -1                # first additive level; -1 = off
+    simple: int = -1
+    add_last_lvl: int = -1
+    seed: int = 2747
+    exact_gs_max: int = 8192          # exact-GS relax types (not ported)
+    cheby_order: int = 2              # Chebyshev relax 16 (not ported)
+    cheby_fraction: float = 0.3
+    cheby_eig_iters: int = 20
+    prefer_dia: bool = True           # accepted; no DIA in the port
+    gsmg: int = 0
+    num_samples: int = 5
+    gsmg_sweeps: int = 5
+    num_functions: int = 1
+    nodal: int = 0
+    nodal_diag: int = 0
+    dof_func: object = None
+    print_level: int = 0              # >=1: per-level trace to stderr
+
+
+PORTED_RELAX = (18, 0, 7)
+
+
+def check_ported(cfg: AmgConfig) -> None:
+    """Raise NotImplementedError for an option outside the slice."""
+    unported = []
+    if cfg.coarsen_type not in ("pmis", "hmis"):
+        unported.append(f"coarsen_type={cfg.coarsen_type!r}")
+    if cfg.interp_type not in (3, 6):
+        unported.append(f"interp_type={cfg.interp_type}")
+    if cfg.relax_type not in PORTED_RELAX:
+        unported.append(f"relax_type={cfg.relax_type}")
+    if cfg.cycle_type != "V":
+        unported.append(f"cycle_type={cfg.cycle_type!r}")
+    for name, off in (("relax_order", 0), ("agg_num_levels", 0),
+                      ("restr_type", 0), ("nongalerk_tol", ()),
+                      ("nongalerk_tol_all", 0.0), ("additive", -1),
+                      ("simple", -1), ("gsmg", 0), ("num_functions", 1),
+                      ("nodal", 0), ("dof_func", None)):
+        if getattr(cfg, name) != off:
+            unported.append(f"{name}={getattr(cfg, name)!r}")
+    if unported:
+        raise NotImplementedError(
+            "not in the port yet (see ROADMAP.md Queue 1): "
+            + ", ".join(unported))
+
+
+@dataclasses.dataclass(frozen=True)
+class AmgLevel:
+    A: SparseOp
+    P: Optional[SparseOp]       # None on the coarsest level
+    R: Optional[SparseOp]       # explicit P^T
+    dinv: Optional[torch.Tensor]  # 1 / smoother diagonal (l1 norms)
+
+
+@dataclasses.dataclass(frozen=True)
+class AmgHierarchy:
+    levels: tuple               # tuple[AmgLevel]
+    c_lu: torch.Tensor          # dense LU of the coarsest A
+    c_piv: torch.Tensor         # 1-based LAPACK pivots (torch convention)
+    relax_weight: float
+    num_sweeps: int
+
+
+def iter_host_hierarchy(A: sp.csr_matrix, cfg: AmgConfig):
+    """Generator form of the level loop of hypre_BoomerAMGSetup
+    (ref: src/parcsr_ls/par_amg_setup.c:990-3155): strength → coarsen →
+    interp → RAP until the coarse grid is small enough.  Yields
+    (A_l, P_l, R_l, cf_l) per level, then the coarsest A last."""
+    check_ported(cfg)
+    Al = A.tocsr()
+    if Al.data.dtype != np.float64:
+        # setup runs in f64 (hypre semantics); converting once here
+        # makes every native kernel's f64 view a no-copy pass-through
+        Al = Al.astype(np.float64)
+    for _level in range(cfg.max_levels - 1):
+        n = Al.shape[0]
+        if n <= cfg.max_coarse_size:
+            break
+        S, strong_mask = strength_matrix(
+            Al, cfg.strong_threshold, cfg.max_row_sum, return_mask=True)
+        if cfg.coarsen_type == "hmis":
+            cf = hmis(S, seed=cfg.seed)
+        else:
+            cf = pmis(S, seed=cfg.seed)
+        n_coarse = int((cf == C_PT).sum())
+        if n_coarse == 0 or n_coarse == n:
+            break
+        interp = direct_interp if cfg.interp_type == 3 else extpi_interp
+        P = interp(Al, S, cf, cfg.trunc_factor, cfg.p_max_elmts,
+                   strong_mask=strong_mask)
+        from hypre_tpu_torch.setup.utils import native_enabled
+
+        if native_enabled():
+            from hypre_tpu_torch.csrc import build as native
+
+            R = native.csr_transpose(P)
+            AP = native.spgemm(Al.tocsr(), P)
+            Ac = native.spgemm(R, AP)
+        else:
+            R = P.T.tocsr()
+            AP = (Al @ P).tocsr()
+            Ac = (R @ AP).tocsr()
+            Ac.sort_indices()
+        yield (Al, P, R, cf)
+        Al = Ac
+    yield Al
+
+
+def l1_option_for_relax(relax_type: int) -> int:
+    if relax_type == 18:
+        return 1
+    return 5  # plain diagonal (Jacobi types 0/7)
+
+
+class BoomerAMG:
+    """Create/Setup/Solve object, mirroring the hypre solver shape
+    ({Create, Setup(A,b,x), Solve(A,b,x)}, ref: SURVEY §1 object model).
+    """
+
+    def __init__(self, config: AmgConfig | None = None):
+        self.config = config or AmgConfig()
+        self.hierarchy: AmgHierarchy | None = None
+        self.level_sizes: list[int] = []
+        self.level_nnz: list[int] = []
+        self.grid_complexity = 1.0
+        self.operator_complexity = 1.0
+
+    # -- setup --------------------------------------------------------
+
+    def setup(self, A: sp.csr_matrix, fine_stencil=None) -> "BoomerAMG":
+        """Build the hierarchy on the host and move each level to the
+        configured device as soon as it is built.
+
+        fine_stencil=((nx,ny,nz), entries): the fine operator is that
+        constant stencil, so level 0 becomes a StencilOp applied by
+        kernel K1 and A itself is never stored on the device."""
+        cfg = self.config
+        device = get_device()
+        dtype = get_config().real_dtype
+        t0 = time.perf_counter()
+
+        def trace(msg):
+            if cfg.print_level >= 1:
+                print(f"  [amg setup +{time.perf_counter() - t0:7.1f}s] "
+                      f"{msg}", file=sys.stderr, flush=True)
+
+        levels = []
+        self.level_sizes, self.level_nnz = [], []
+        Al = None
+        for item in iter_host_hierarchy(A, cfg):
+            if not isinstance(item, tuple):
+                Al = item
+                break
+            Ah = item[0]
+            trace(f"level {len(levels)} host built "
+                  f"(n={Ah.shape[0]}, nnz={Ah.nnz})")
+            a_op = None
+            if not levels and fine_stencil is not None:
+                a_op = stencil_op(*fine_stencil, dtype=dtype)
+            levels.append(self._build_dev_level(*item, a_op=a_op,
+                                                dtype=dtype, device=device))
+            trace(f"level {len(levels) - 1} on the device")
+            self.level_sizes.append(Ah.shape[0])
+            self.level_nnz.append(Ah.nnz)
+        # coarsest level: dense LU
+        levels.append(AmgLevel(
+            A=sparse_op_from_scipy(Al, dtype, device), P=None, R=None,
+            dinv=None))
+        dense = torch.as_tensor(Al.toarray(), dtype=dtype, device=device)
+        c_lu, c_piv = torch.linalg.lu_factor(dense)
+        self.level_sizes.append(Al.shape[0])
+        self.level_nnz.append(Al.nnz)
+        trace("coarsest level factored on the device")
+
+        self.hierarchy = AmgHierarchy(
+            levels=tuple(levels), c_lu=c_lu, c_piv=c_piv,
+            relax_weight=cfg.relax_weight, num_sweeps=cfg.num_sweeps)
+        self.grid_complexity = sum(self.level_sizes) / self.level_sizes[0]
+        self.operator_complexity = sum(self.level_nnz) / A.nnz
+        return self
+
+    def _build_dev_level(self, Ah, Ph, Rh, cfm, a_op=None, *, dtype,
+                         device) -> AmgLevel:
+        dinv = 1.0 / l1_norms(Ah, l1_option_for_relax(
+            self.config.relax_type))
+        return AmgLevel(
+            A=(a_op if a_op is not None
+               else sparse_op_from_scipy(Ah, dtype, device)),
+            P=sparse_op_from_scipy(Ph, dtype, device),
+            R=sparse_op_from_scipy(Rh, dtype, device),
+            dinv=torch.as_tensor(dinv, dtype=dtype, device=device))
+
+    @property
+    def level_formats(self) -> list[str]:
+        return [type(lvl.A).__name__ for lvl in self.hierarchy.levels]
+
+    # -- solve --------------------------------------------------------
+
+    def precondition(self, r: torch.Tensor) -> torch.Tensor:
+        """One cycle with zero initial guess (the PCG preconditioner)."""
+        return amg_cycle(self.hierarchy, r)
+
+    def solve(self, b, x0=None, tol: float = 1e-8, max_iter: int = 20):
+        """Standalone AMG iteration (hypre_BoomerAMGSolve semantics:
+        cycle + 2-norm relative-residual check, ref: par_amg_solve.c:
+        265-335).  Returns (x, iterations, relative residual)."""
+        h = self.hierarchy
+        A0 = h.levels[0].A
+        b = as_real(b, h.c_lu.dtype)
+        x = torch.zeros_like(b) if x0 is None else as_real(x0, b.dtype)
+        bnorm = float(torch.linalg.vector_norm(b))
+        safe_b = bnorm if bnorm > 0 else 1.0
+        r = b - matvec(A0, x)
+        rnorm = float(torch.linalg.vector_norm(r))
+        it = 0
+        while it < max_iter and rnorm / safe_b > tol:
+            x = x + amg_cycle(h, r)
+            r = b - matvec(A0, x)
+            rnorm = float(torch.linalg.vector_norm(r))
+            it += 1
+        return x, it, rnorm / safe_b
+
+
+def _relax(lvl: AmgLevel, w: float, f: torch.Tensor,
+           u: Optional[torch.Tensor], num_sweeps: int) -> torch.Tensor:
+    """(l1-)Jacobi smoothing, relax 18 / 7 / 0 (ref: par_relax.c:24):
+    u += w * dinv * (f - A u); the first sweep from u = 0 folds to
+    u = w * dinv * f."""
+    A, dinv = lvl.A, lvl.dinv
+    for _ in range(num_sweeps):
+        r = f if u is None else f - matvec(A, u)
+        z = w * dinv * r
+        u = z if u is None else u + z
+    return u
+
+
+def coarse_solve(h: AmgHierarchy, f: torch.Tensor) -> torch.Tensor:
+    """Coarsest level: dense LU solve (GE, ref: par_gauss_elim.c:457)."""
+    return torch.linalg.lu_solve(h.c_lu, h.c_piv, f[:, None])[:, 0]
+
+
+def amg_cycle(h: AmgHierarchy, f: torch.Tensor) -> torch.Tensor:
+    """One V-cycle with zero initial guess (ref: par_cycle.c:23)."""
+    return _cycle_at(h, 0, f)
+
+
+def _cycle_at(h: AmgHierarchy, l: int, f: torch.Tensor) -> torch.Tensor:
+    levels = h.levels
+    if l == len(levels) - 1:
+        return coarse_solve(h, f)
+    lvl = levels[l]
+    w, ns = h.relax_weight, h.num_sweeps
+    u = _relax(lvl, w, f, None, ns)
+    r = f - matvec(lvl.A, u)
+    uc = _cycle_at(h, l + 1, matvec(lvl.R, r))
+    u = u + matvec(lvl.P, uc)
+    return _relax(lvl, w, f, u, ns)

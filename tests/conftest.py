@@ -29,3 +29,9 @@ def _clear_jax_caches_per_module():
     Dropping the compilation caches between modules keeps it stable."""
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the PyTorch/CUDA port's "
+        "kernels); skipped where torch.cuda.is_available() is false")

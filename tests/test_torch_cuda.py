@@ -1,0 +1,88 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: they skip where torch.cuda.is_available() is false.
+On a machine with an NVIDIA GPU and nvcc run them with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+
+(the first test builds the kernels).  Tolerance: max |kernel - plain|
+over the largest |A| |x| term, f64 1e-12, f32 1e-5 — the two sum in
+other orders and the kernels contract multiply-adds."""
+import dataclasses
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+from torch_port_helpers import LAPLACE_27PT, LAPLACE_7PT, rel_diff
+
+from hypre_tpu_torch import Config, set_config
+from hypre_tpu_torch.gen import laplacian
+from hypre_tpu_torch.ops.spmv import csr_from_scipy, csr_spmv, csr_spmv_plain
+from hypre_tpu_torch.ops.stencil import (
+    stencil_matvec, stencil_matvec_plain, stencil_op,
+)
+from hypre_tpu_torch.solvers import AmgConfig, BoomerAMG, pcg
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels have no CPU mode")
+    set_config(Config(device="cuda"))
+    yield torch.device("cuda")
+    set_config(Config(device="cuda"))
+
+
+def _check(y, y_ref, scale, dtype):
+    err = float((y - y_ref).abs().max())
+    assert err <= TOL[dtype] * float(scale.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("stencil", [LAPLACE_7PT, LAPLACE_27PT],
+                         ids=["7pt", "27pt"])
+@pytest.mark.parametrize("grid", [(13, 9, 7), (1, 1, 33), (64, 32, 16)])
+def test_stencil_kernel_matches_plain(card, grid, stencil, dtype):
+    op = stencil_op(grid, stencil, dtype=dtype)
+    x = torch.randn(op.n_rows, dtype=dtype, device=card,
+                    generator=torch.Generator(card).manual_seed(1))
+    before = stencil_matvec.launches
+    y = stencil_matvec(op, x)
+    torch.cuda.synchronize()
+    assert stencil_matvec.launches == before + 1
+    absop = stencil_op(grid, [(d, abs(v)) for d, v in stencil], dtype=dtype)
+    _check(y, stencil_matvec_plain(op, x),
+           stencil_matvec_plain(absop, x.abs()), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("group", [2, 4, 8, 16, 32])
+def test_csr_kernel_matches_plain(card, group, dtype):
+    rng = np.random.default_rng(group)
+    A = sp.random(5003, 4001, density=0.01, random_state=rng, format="csr")
+    M = dataclasses.replace(csr_from_scipy(A, dtype, card), group=group)
+    x = torch.as_tensor(rng.standard_normal(4001), dtype=dtype, device=card)
+    before = csr_spmv.launches
+    y = csr_spmv(M, x)
+    torch.cuda.synchronize()
+    assert csr_spmv.launches == before + 1
+    absM = dataclasses.replace(M, values=M.values.abs())
+    _check(y, csr_spmv_plain(M, x), csr_spmv_plain(absM, x.abs()), dtype)
+
+
+def test_pcg_on_card_matches_cpu(card):
+    n = 16
+    out = {}
+    for device in ("cuda", "cpu"):
+        set_config(Config(device=device))
+        amg = BoomerAMG(AmgConfig(interp_type=6)).setup(
+            laplacian(n, n, n), fine_stencil=((n, n, n), LAPLACE_7PT))
+        res = pcg(amg.hierarchy.levels[0].A, np.ones(n ** 3), M=amg)
+        out[device] = (res.iters, res.x.cpu().numpy())
+    assert out["cuda"][0] == out["cpu"][0]
+    assert rel_diff(out["cuda"][1], out["cpu"][1]) <= 1e-10

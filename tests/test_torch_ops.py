@@ -1,0 +1,181 @@
+"""The plain versions of the port's kernels against hypre_tpu's.
+
+K1 (stencil matvec): stencil_matvec_plain against hypre_tpu's
+stencil_matvec_reference, 7-pt and 27-pt stencils on grids that are not
+powers of two, f64 and f32.  K2 (CSR SpMV): csr_spmv_plain on a real
+24^3 level-1 operator carried across from its GST-ELL pack, against
+gstell_matvec_reference on that pack.  Tolerances are relative to the
+largest |A| |x| term: f64 1e-13, f32 1e-6 (the two sum in other orders).
+The kernels themselves run only on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+from torch_port_helpers import (
+    LAPLACE_27PT, LAPLACE_7PT, assert_csr_equal, op_dict,
+)
+
+from hypre_tpu.ops import formats as ref_formats
+from hypre_tpu.ops.gstell import gstell_from_scipy, gstell_matvec_reference
+from hypre_tpu.ops.stencil_pallas import stencil_matvec_reference
+from hypre_tpu.ops.stencil_pallas import stencil_op as ref_stencil_op
+from hypre_tpu.solvers import amg as ref_amg
+from hypre_tpu_torch import Config, set_config
+from hypre_tpu_torch import convert
+from hypre_tpu_torch.core.errors import HypreTpuError
+from hypre_tpu_torch.gen import laplacian
+from hypre_tpu_torch.ops import formats
+from hypre_tpu_torch.ops.spmv import (
+    CsrMatrix, csr_spmv, csr_spmv_plain, group_size,
+)
+from hypre_tpu_torch.ops.stencil import (
+    stencil_matvec, stencil_matvec_plain, stencil_op,
+)
+
+torch.set_num_threads(1)
+TOL = {np.float64: 1e-13, np.float32: 1e-6}
+TORCH = {np.float64: torch.float64, np.float32: torch.float32}
+
+
+@pytest.fixture(autouse=True)
+def _cpu():
+    set_config(Config(device="cpu"))
+    yield
+    set_config(Config(device="cpu"))
+
+
+def _close(y, y_ref, scale, dtype):
+    y, y_ref, scale = (np.asarray(a).astype(np.float64)
+                       for a in (y, y_ref, scale))
+    err = np.abs(y - y_ref).max()
+    assert err <= TOL[dtype] * np.abs(scale).max(), err
+
+
+@pytest.fixture(scope="module")
+def level1():
+    """Level-1 operator (ext+i RAP) of the 24^3 Laplacian."""
+    it = ref_amg.iter_host_hierarchy(laplacian(24, 24, 24),
+                                     ref_amg.AmgConfig(interp_type=6))
+    next(it)
+    return next(it)[0]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("stencil", [LAPLACE_7PT, LAPLACE_27PT],
+                         ids=["7pt", "27pt"])
+@pytest.mark.parametrize("grid", [(13, 9, 7), (5, 11, 3), (1, 1, 17),
+                                  (16, 8, 4)])
+def test_stencil_plain_matches_reference(grid, stencil, dtype):
+    x = np.random.default_rng(3).standard_normal(np.prod(grid)).astype(dtype)
+    port = stencil_op(grid, stencil, dtype=TORCH[dtype])
+    ref = ref_stencil_op(grid, stencil, dtype=dtype)
+    y = stencil_matvec_plain(port, torch.from_numpy(x))
+    y_ref = stencil_matvec_reference(ref, jnp.asarray(x))
+    scale = stencil_matvec_plain(
+        stencil_op(grid, [(d, abs(v)) for d, v in stencil],
+                   dtype=torch.float64),
+        torch.from_numpy(np.abs(x).astype(np.float64)))
+    assert y.dtype == TORCH[dtype]
+    _close(y, y_ref, scale, dtype)
+
+
+def test_stencil_op_matches_generated_matrix():
+    grid = (7, 6, 5)
+    x = np.random.default_rng(4).standard_normal(np.prod(grid))
+    A = laplacian(*grid)
+    y = stencil_matvec_plain(stencil_op(grid, LAPLACE_7PT), torch.from_numpy(x))
+    np.testing.assert_allclose(y.numpy(), A @ x, rtol=1e-14, atol=1e-13)
+    assert stencil_op(grid, LAPLACE_7PT).nnz == A.nnz
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_csr_plain_matches_gstell_reference(level1, dtype):
+    packed = gstell_from_scipy(level1, dtype)
+    assert packed is not None
+    csr = convert.operator_from_numpy(op_dict(packed), dtype=TORCH[dtype])
+    assert isinstance(csr, CsrMatrix)
+    assert csr.indptr.dtype == torch.int64
+    assert csr.indices.dtype == torch.int32
+    x = np.random.default_rng(5).standard_normal(level1.shape[1]).astype(
+        dtype)
+    y = csr_spmv_plain(csr, torch.from_numpy(x))
+    y_ref = gstell_matvec_reference(packed, jnp.asarray(x))
+    scale = abs(level1) @ np.abs(x.astype(np.float64))
+    _close(y, y_ref, scale, dtype)
+
+
+def test_gstell_conversion_recovers_the_matrix(level1):
+    packed = gstell_from_scipy(level1, np.float64)
+    A = convert.scipy_from_gstell(np.asarray(packed.base),
+                                  np.asarray(packed.locs),
+                                  np.asarray(packed.vals), packed.n_rows,
+                                  packed.n_cols)
+    assert_csr_equal(A, level1.tocsr())
+
+
+def test_ell_and_dia_conversions_recover_the_matrix(level1):
+    ell = ref_formats.ell_from_scipy(level1, np.float64)
+    assert_csr_equal(convert.scipy_from_ell(np.asarray(ell.cols),
+                                            np.asarray(ell.vals),
+                                            ell.n_cols), level1)
+    A = laplacian(9, 8, 7)
+    dia = ref_formats.dia_from_scipy(A, np.float64)
+    assert_csr_equal(convert.scipy_from_dia(dia.offsets, np.asarray(dia.vals),
+                                            dia.n_cols), A)
+
+
+def test_stencil_and_dense_conversions():
+    grid = (6, 5, 4)
+    ref = ref_stencil_op(grid, LAPLACE_27PT, dtype=np.float64)
+    port = convert.operator_from_numpy(op_dict(ref))
+    assert port.grid == grid and port.entries == ref.entries
+    B = sp.random(300, 170, density=0.05, random_state=1, format="csr")
+    dense = convert.operator_from_numpy(
+        op_dict(ref_formats.dense_from_scipy(B, np.float64)))
+    assert isinstance(dense, formats.DenseMatrix) and dense.shape == B.shape
+    np.testing.assert_array_equal(dense.vals.numpy(), B.toarray())
+
+
+def test_sparse_op_dispatch_and_matvec(level1):
+    small = laplacian(8, 8, 8)                       # 512 rows: dense
+    op = formats.sparse_op_from_scipy(small)
+    assert isinstance(op, formats.DenseMatrix)
+    big = formats.sparse_op_from_scipy(level1)
+    assert isinstance(big, CsrMatrix)
+    x = np.random.default_rng(6).standard_normal(level1.shape[1])
+    for A, M in ((op, small), (big, level1)):
+        y = formats.matvec(A, torch.as_tensor(x[:M.shape[1]]))
+        np.testing.assert_allclose(y.numpy(), M @ x[:M.shape[1]],
+                                   rtol=1e-13, atol=1e-12)
+
+
+def test_group_size_follows_mean_row_nnz():
+    assert [group_size(100, 100 * k) for k in (1, 3, 4, 7, 8, 20, 40, 64,
+                                                500)] == \
+        [2, 2, 4, 4, 8, 16, 32, 32, 32]
+
+
+def test_wrappers_take_the_plain_version_on_cpu():
+    stencil_matvec.launches = csr_spmv.launches = 0
+    op = stencil_op((4, 4, 4), LAPLACE_7PT)
+    x = torch.ones(64, dtype=torch.float64)
+    assert torch.equal(stencil_matvec(op, x), stencil_matvec_plain(op, x))
+    A = formats.sparse_op_from_scipy(laplacian(64, 64, 1))
+    assert torch.equal(csr_spmv(A, torch.ones(4096, dtype=torch.float64)),
+                       csr_spmv_plain(A, torch.ones(4096,
+                                                    dtype=torch.float64)))
+    assert stencil_matvec.launches == csr_spmv.launches == 0
+
+
+def test_wrappers_raise_without_a_kernel():
+    """Neither a CPU fallback nor a silent path: a tensor that is not on
+    the CPU and has no kernel raises."""
+    op = stencil_op((4, 4, 4), LAPLACE_7PT)
+    with pytest.raises(HypreTpuError):
+        stencil_matvec(op, torch.empty(64, dtype=torch.float64,
+                                       device="meta"))
+    A = formats.sparse_op_from_scipy(laplacian(64, 64, 1))
+    with pytest.raises(HypreTpuError):
+        csr_spmv(A, torch.empty(4096, dtype=torch.float64, device="meta"))
