@@ -14,7 +14,10 @@ Phases, each printing one JSON line:
 3. kernel_checks (synthetic) — K1 stencil_matvec and K2 csr_spmv against
              their plain PyTorch versions on the card, f32 and f64: K1 on
              7-pt and 27-pt stencils over odd grids and 256^3, K2 on
-             random CSR at every thread-group size.
+             random CSR at every thread-group size; K4 btake_rows bit
+             for bit: int32/f32/f64, K = 1 and 3, random and banded index
+             sets with -1 holes, sources smaller and larger than the
+             50 MB L2.
 4. main_path — hypre's out.14 problem through the port's entry points:
              laplacian, BoomerAMG(AmgConfig(interp_type=6, relax_type=18))
              .setup(A, fine_stencil=...), one warm-up and three timed
@@ -33,6 +36,24 @@ Phases, each printing one JSON line:
 8. small_input — the port at 24^3 on the card against the port's CPU
              path (the plain versions, held against hypre_tpu by the
              tests): same PCG iterations, x to rel 1e-10.
+9. device_setup — the device-resident path at 256^3, not cut: the host
+             hierarchy is dropped and the peak-memory counter reset, then
+             BoomerAMG(...).setup_device(stencil=...) builds the whole
+             hierarchy on the card, and one warm-up and three timed
+             pcg(tol=1e-8) solves run with b on the card.  Launch counts
+             are zeroed before the setup and read after it (K4), and
+             zeroed before the solves and read after them (K1, K2).
+             Fails unless true relres <= 1e-8 in <= 30 iterations and
+             K4, K1 and K2 were launched.
+10. device_setup_parity — 32^3: setup_device on the card equals the
+             port's CPU path (level sizes, CF bit for bit, P and A to
+             1e-12 relative); 16^3: the card's level sizes and operator
+             complexity equal hypre_tpu's device hierarchy (REF_DEVICE_*).
+11. kernel_timing (K4) — btake_rows on the 256^3 device path's own index
+             sets: the level-1 PMIS neighbour read (A1's cols; f64 and
+             int32 sources) and one chunk of level 0's P^T (A P) row
+             expansion, beside its plain version, index_select and the
+             bound.
 
 Then the kernels line, nvidia-smi's line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises: nothing is
@@ -53,6 +74,7 @@ import torch
 from hypre_tpu_torch import Config, set_config
 from hypre_tpu_torch.csrc import build
 from hypre_tpu_torch.gen import laplacian
+from hypre_tpu_torch.ops.btake import btake_rows, btake_rows_plain
 from hypre_tpu_torch.ops.formats import CsrMatrix
 from hypre_tpu_torch.ops.spmv import (
     csr_from_scipy, csr_spmv, csr_spmv_plain,
@@ -60,6 +82,7 @@ from hypre_tpu_torch.ops.spmv import (
 from hypre_tpu_torch.ops.stencil import (
     stencil_matvec, stencil_matvec_plain, stencil_op,
 )
+from hypre_tpu_torch.setup import device_amg as dev
 from hypre_tpu_torch.setup.utils import native_enabled
 from hypre_tpu_torch.solvers import AmgConfig, BoomerAMG, pcg
 
@@ -73,6 +96,15 @@ GRID = 256        # out.14: -n 256 256 256 (BASELINE.md:20), not cut
 # BENCH_r05.json:19-31, the reference's host setup at 256^3
 REF_LEVELS = [16777216, 5156632, 684520, 71646, 8141, 969, 183, 27, 5]
 REF_OPERATOR_COMPLEXITY = 2.775
+# hypre_tpu's device hierarchy of the 16^3 7-pt Laplacian (interp 6,
+# relax 18), computed on the CPU with jax_enable_x64 by chaining
+# hypre_tpu/setup/device_amg.py's stage functions as its
+# iter_device_hierarchy does (ref_device_hierarchy in
+# tests/torch_port_helpers.py shows how); nonzeros are the DEll's valid
+# slots
+REF_DEVICE_LEVELS = [4096, 1383, 213, 30, 4]
+REF_DEVICE_NNZ = [27136, 33519, 9333, 732, 16]
+REF_DEVICE_OPERATOR_COMPLEXITY = 2.6067216981132075
 # tolerance of a kernel against its plain version: max |kernel - plain|
 # over max(|A| |x|), the size of the terms summed (order of summation
 # and FMA contraction differ between the two)
@@ -126,6 +158,12 @@ def time_ms(fn, reps: int = 20) -> float:
 def reset_counts() -> None:
     stencil_matvec.launches = 0
     csr_spmv.launches = 0
+    btake_rows.launches = 0
+
+
+def read_counts() -> dict:
+    return {"stencil_matvec": stencil_matvec.launches,
+            "csr_spmv": csr_spmv.launches, "btake_rows": btake_rows.launches}
 
 
 def rel_err(y, y_ref, scale) -> tuple[float, float]:
@@ -210,6 +248,46 @@ def phase_build() -> None:
         raise AssertionError("native setup did not run")
 
 
+def check_btake(idx, X, fill, label: str) -> dict:
+    """K4 against its plain version: a gather is exact, so bit for bit."""
+    Y = btake_rows(idx, X, fill)
+    torch.cuda.synchronize()
+    Y_ref = btake_rows_plain(idx, X, fill)
+    if not torch.equal(Y, Y_ref):
+        raise AssertionError(f"btake_rows {label} {X.dtype}: differs from "
+                             f"its plain version")
+    err = float((Y.double() - Y_ref.double()).abs().max()) \
+        if Y.numel() else 0.0
+    return {"case": label, "S": idx.shape[0], "n": idx.shape[1],
+            "K": X.shape[0], "n_src": X.shape[1], "dtype": str(X.dtype),
+            "max_abs_err": err, "rel_err": 0.0}
+
+
+def btake_synthetic(gen) -> list:
+    dev_ = torch.device("cuda")
+    out = []
+    # n_src of 100k (0.8 MB as f64) fits the 50 MB L2; 20M (160 MB) not
+    for n_src in (100_003, 20_000_000):
+        for S, n in ((7, 300_007), (64, 50_021)):
+            rnd = torch.randint(-1, n_src, (S, n), generator=gen,
+                                device=dev_, dtype=torch.int32)
+            center = (torch.arange(n, device=dev_) * (n_src / n)).long()
+            band = (center[None] + torch.randint(
+                -500, 501, (S, n), generator=gen, device=dev_)).clamp(
+                0, n_src - 1).to(torch.int32)
+            band[torch.rand((S, n), generator=gen, device=dev_) < 0.2] = -1
+            for kind, idx in (("random", rnd), ("banded", band)):
+                for dtype in (torch.int32, torch.float32, torch.float64):
+                    for K in (1, 3):
+                        X = (torch.randn((K, n_src), generator=gen,
+                                         device=dev_) * 1e4).to(dtype)
+                        out.append(check_btake(
+                            idx, X, -1 if dtype == torch.int32 else 0,
+                            f"{kind} n_src={n_src}"))
+                        del X
+    return out
+
+
 def phase_synthetic_checks(gen) -> None:
     dev = torch.device("cuda")
     results = []
@@ -228,8 +306,10 @@ def phase_synthetic_checks(gen) -> None:
             results.append(check_csr(dataclasses.replace(base, group=g), x,
                                      f"random G={g}"))
         torch.cuda.synchronize()
+    results += btake_synthetic(gen)
+    reset_counts()
     emit({"phase": "kernel_checks", "set": "synthetic",
-          "kernel_names": ["stencil_matvec", "csr_spmv"],
+          "kernel_names": ["stencil_matvec", "csr_spmv", "btake_rows"],
           "n_checks": len(results),
           "worst_rel_err": max(r["rel_err"] for r in results),
           "checks": results})
@@ -262,8 +342,7 @@ def phase_main_path() -> dict:
         times.append(time.perf_counter() - t1)
         iters.append(res.iters)
         results.append((bt, res))
-    launches = {"stencil_matvec": stencil_matvec.launches,
-                "csr_spmv": csr_spmv.launches}
+    launches = read_counts()
     bt, res = results[-1]
     x = res.x
     r_true = bt - stencil_matvec_plain(op, x)
@@ -293,8 +372,8 @@ def phase_main_path() -> dict:
     if amg.level_sizes != REF_LEVELS or round(
             amg.operator_complexity, 3) != REF_OPERATOR_COMPLEXITY:
         raise AssertionError("hierarchy differs from the reference's")
-    for name, count in launches.items():
-        if count == 0:
+    for name in ("stencil_matvec", "csr_spmv"):
+        if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the main path")
     return {"amg": amg, "op": op, "launches": launches, "out": out}
 
@@ -475,6 +554,193 @@ def phase_small_input() -> None:
         raise AssertionError("card and CPU paths disagree at 24^3")
 
 
+def phase_device_setup(host_setup_s: float) -> dict:
+    """The device-resident setup at 256^3 and its solves."""
+    set_config(Config(real_dtype=F64, device="cuda"))
+    n = GRID
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = AmgConfig(interp_type=6, relax_type=18, print_level=1)
+    reset_counts()
+    t0 = time.perf_counter()
+    amg = BoomerAMG(cfg).setup_device(stencil=((n, n, n), LAPLACE_7PT))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_launches = read_counts()
+    setup_peak = torch.cuda.max_memory_allocated() / 1e9
+    op = amg.hierarchy.levels[0].A
+    b = torch.ones(n ** 3, dtype=F64, device="cuda")
+    reset_counts()
+    warm = pcg(op, b, M=amg, tol=1e-8, max_iter=100)
+    iters, times, results = [warm.iters], [], []
+    for t in range(3):
+        bt = b * (1.0 + 0.0137 * (t + 1))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = pcg(op, bt, M=amg, tol=1e-8, max_iter=100)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        iters.append(res.iters)
+        results.append((bt, res))
+    solve_launches = read_counts()
+    bt, res = results[-1]
+    true_relres = float(torch.linalg.vector_norm(
+        bt - stencil_matvec_plain(op, res.x)) / torch.linalg.vector_norm(bt))
+    split = [{k: st[k] for k in (
+        "level", "n", "w", "n_coarse", "strength_s", "pmis_s", "pmis_rounds",
+        "interp_s", "rap_s", "pack_s", "w_p", "w_ap", "w_pt", "w_ac")
+        if k in st} for st in amg.setup_stats]
+    out = {
+        "phase": "device_setup", "grid": [n, n, n], "dtype": "float64",
+        "levels": amg.level_sizes, "level_nnz": amg.level_nnz,
+        "operator_complexity": amg.operator_complexity,
+        "level_formats": amg.level_formats, "setup_s": setup_s,
+        "host_setup_s": host_setup_s, "per_level": split,
+        "stage_totals_s": {k: sum(st.get(k, 0.0) for st in split) for k in (
+            "strength_s", "pmis_s", "interp_s", "rap_s", "pack_s")},
+        "iters": res.iters, "iters_all_solves": iters, "relres": res.relres,
+        "true_relres": true_relres, "solve_s": statistics.median(times),
+        "solve_times_s": times, "peak_mem_gb": setup_peak,
+        "peak_mem_gb_with_solves": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_setup": setup_launches, "launches_solves": solve_launches,
+    }
+    emit(out)
+    if not bool(torch.isfinite(res.x).all()) or res.x.shape != (n ** 3,):
+        raise AssertionError("device path: solution not finite or misshapen")
+    if true_relres > 1e-8 or max(iters) > 30:
+        raise AssertionError(f"device path: true relres {true_relres:.3e} "
+                             f"in {iters} iterations")
+    if setup_launches["btake_rows"] == 0:
+        raise AssertionError("btake_rows was not launched in setup_device")
+    for name in ("stencil_matvec", "csr_spmv"):
+        if solve_launches[name] == 0:
+            raise AssertionError(f"{name} was not launched in the device "
+                                 f"path's solves")
+    return {"amg": amg, "launches": setup_launches, "out": out}
+
+
+def phase_device_setup_parity() -> None:
+    """32^3: card vs the port's CPU path; 16^3: card vs the reference
+    package's device hierarchy (REF_DEVICE_*)."""
+    n = 32
+    built = {}
+    for device in ("cuda", "cpu"):
+        set_config(Config(real_dtype=F64, device=device))
+        built[device] = list(dev.iter_device_hierarchy(
+            dev.dell_stencil((n, n, n), LAPLACE_7PT),
+            AmgConfig(interp_type=6, relax_type=18)))
+    set_config(Config(real_dtype=F64, device="cuda"))
+    g_items, c_items = built["cuda"], built["cpu"]
+    sizes_g = [it[0].n_rows for it in g_items[:-1]] + [g_items[-1].n_rows]
+    sizes_c = [it[0].n_rows for it in c_items[:-1]] + [c_items[-1].n_rows]
+    cf_equal = all(torch.equal(g[3].cpu(), c[3])
+                   for g, c in zip(g_items[:-1], c_items[:-1]))
+
+    def rel(a, b):
+        d = abs(dev.dell_to_scipy(a) - dev.dell_to_scipy(b))
+        return (d.max() if d.nnz else 0.0) / abs(dev.dell_to_scipy(b)).max()
+
+    a_rel = max([rel(g[0], c[0]) for g, c in zip(g_items[:-1], c_items[:-1])]
+                + [rel(g_items[-1], c_items[-1])])
+    p_rel = max(rel(g[1], c[1]) for g, c in zip(g_items[:-1], c_items[:-1]))
+    bitwise = all(torch.equal(x.cols.cpu(), y.cols)
+                  and torch.equal(x.vals.cpu(), y.vals)
+                  for g, c in zip(g_items[:-1], c_items[:-1])
+                  for x, y in zip(g[:3], c[:3]))
+    del built, g_items, c_items
+    m = 16
+    amg = BoomerAMG(AmgConfig(interp_type=6, relax_type=18)).setup_device(
+        stencil=((m, m, m), LAPLACE_7PT))
+    out = {"phase": "device_setup_parity", "grid_card_vs_cpu": [n, n, n],
+           "levels_card": sizes_g, "levels_cpu": sizes_c,
+           "cf_bitwise": cf_equal, "A_max_rel_diff": a_rel,
+           "P_max_rel_diff": p_rel, "A_P_R_bitwise": bitwise,
+           "grid_vs_reference": [m, m, m], "levels": amg.level_sizes,
+           "level_nnz": amg.level_nnz,
+           "operator_complexity": amg.operator_complexity,
+           "reference_levels": REF_DEVICE_LEVELS,
+           "reference_operator_complexity": REF_DEVICE_OPERATOR_COMPLEXITY}
+    emit(out)
+    if sizes_g != sizes_c or not cf_equal or a_rel > 1e-12 or p_rel > 1e-12:
+        raise AssertionError("device setup: card and CPU disagree at 32^3")
+    if amg.level_sizes != REF_DEVICE_LEVELS \
+            or amg.level_nnz != REF_DEVICE_NNZ \
+            or amg.operator_complexity != REF_DEVICE_OPERATOR_COMPLEXITY:
+        raise AssertionError("device setup: 16^3 hierarchy differs from "
+                             "hypre_tpu's")
+
+
+def btake_timing_case(idx, X, fill, label, peaks) -> dict:
+    t_k = time_ms(lambda: btake_rows(idx, X, fill))
+    t_p = time_ms(lambda: btake_rows_plain(idx, X, fill))
+    flat = idx.clamp_min(0).flatten()
+    t_l = time_ms(lambda: X.index_select(1, flat))
+    # bytes the gather must move: idx and Y once each, and each source
+    # entry that the index set names, once
+    item = X.element_size()
+    used = int(torch.unique(idx[idx >= 0]).numel())
+    n_bytes = idx.numel() * 4 + X.shape[0] * idx.numel() * item \
+        + X.shape[0] * used * item
+    t_b, by = bound_ms(peaks, n_bytes, 0, F64)
+    err = check_btake(idx, X, fill, label)["max_abs_err"]
+    del flat
+    return {"case": label, "S": idx.shape[0], "n": idx.shape[1],
+            "K": X.shape[0], "n_src": X.shape[1], "n_src_named": used,
+            "dtype": str(X.dtype), "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": t_b,
+            "bound_by": by, "bytes": n_bytes, "max_abs_err": err}
+
+
+def phase_btake_timing(peaks, setup_launches) -> dict:
+    """K4 on the 256^3 device path's own index sets.  Level 0's stages
+    are run once more to get A1 (= P0^T A0 P0, padded as the level loop
+    pads it), P0^T and A0 P0."""
+    set_config(Config(real_dtype=F64, device="cuda"))
+    n = GRID
+    A0 = dev.dell_stencil((n, n, n), LAPLACE_7PT)
+    strong = dev.device_strength(A0)
+    cf = dev.device_pmis(A0, strong)
+    nc = int((cf == dev.C_PT).sum())
+    P0 = dev.device_extpi_interp(A0, strong, cf, n_coarse=nc)
+    del strong, cf
+    AP = dev.device_spgemm(A0, P0)
+    PT = dev.device_transpose(P0, dev.device_transpose_width(P0))
+    del A0, P0
+    # the chunk of P^T (A P) that the level loop's first window takes
+    c0, c1 = dev._chunks(PT.n_rows, dev._spgemm_row_bytes(PT.width,
+                                                          AP.width))[0]
+    cases = []
+    idx = PT.cols[:, c0:c1]
+    cases.append(btake_timing_case(idx, AP.cols, -1,
+                                   "level-0 P^T (A P) expansion, cols", peaks))
+    cases.append(btake_timing_case(idx, AP.vals, 0,
+                                   "level-0 P^T (A P) expansion, vals", peaks))
+    A1 = dev.dell_pad_width(dev.device_spgemm(PT, AP))
+    del PT, AP, idx
+    n1 = A1.n_rows
+    g = torch.Generator(device="cuda").manual_seed(5)
+    m = torch.rand(n1, generator=g, device="cuda", dtype=F64)
+    gid = torch.arange(n1, dtype=torch.int32, device="cuda")
+    cases.append(btake_timing_case(A1.cols, m[None], 0,
+                                   "level-1 PMIS read, f64 source", peaks))
+    cases.append(btake_timing_case(A1.cols, gid[None], -1,
+                                   "level-1 PMIS read, int32 source", peaks))
+    out = {"ms": sum(c["ms"] for c in cases),
+           "plain_ms": sum(c["plain_ms"] for c in cases),
+           "library_ms": sum(c["library_ms"] for c in cases),
+           "library": "Tensor.index_select(1, idx.clamp_min(0).flatten())",
+           "bound_ms": sum(c["bound_ms"] for c in cases),
+           "bound_by": ("bytes" if all(c["bound_by"] == "bytes"
+                                       for c in cases) else "operations"),
+           "max_abs_err": max(c["max_abs_err"] for c in cases),
+           "launches_per_setup": setup_launches["btake_rows"],
+           "note": "sums over the four timed gathers (cases)"}
+    del A1, m, gid
+    reset_counts()
+    emit({"phase": "kernel_timing", "kernel": "btake_rows", "dtype": "mixed",
+          "btake_rows": out, "cases": cases})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -491,22 +757,45 @@ def main() -> int:
     op = main_path["op"]
     x = torch.randn(op.n_rows, generator=gen, dtype=F64, device="cuda")
     k1_err = check_stencil(op, x)["max_abs_err"]
+    del x
     phase_profile(main_path["amg"], op)
     phase_small_input()
+    host_setup_s = main_path["out"]["setup_s"]
+    # the device path's own memory: drop the host hierarchy first
+    del main_path["amg"], main_path["op"], op
+    torch.cuda.empty_cache()
+    device_path = phase_device_setup(host_setup_s)
+    del device_path["amg"]
+    torch.cuda.empty_cache()
+    phase_device_setup_parity()
+    timing["btake_rows"] = phase_btake_timing(card["peaks"],
+                                              device_path["launches"])
     kernels = []
     for name, route_src, replaces, err in (
             ("stencil_matvec", "hypre_tpu_torch/csrc/stencil_matvec.cu",
              "hypre_tpu/ops/stencil_pallas.py:123", k1_err),
             ("csr_spmv", "hypre_tpu_torch/csrc/csr_spmv.cu",
-             "hypre_tpu/ops/gstell.py:719", k2_err)):
+             "hypre_tpu/ops/gstell.py:719", k2_err),
+            ("btake_rows", "hypre_tpu_torch/csrc/btake.cu",
+             "hypre_tpu/ops/btake.py:285",
+             timing["btake_rows"]["max_abs_err"])):
         t = timing[name]
-        kernels.append({
+        # K1 and K2: the host main path's run; K4: the device path's
+        # setup, the only path that gathers
+        launches = (device_path["launches"][name] if name == "btake_rows"
+                    else main_path["launches"][name])
+        row = {
             "name": name, "route": "cuda", "source": route_src,
-            "replaces": replaces, "launches": main_path["launches"][name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "launches_per_pcg_iter": t["per_pcg_iter"]})
+            "library_ms": t["library_ms"]}
+        if "per_pcg_iter" in t:
+            row["launches_per_pcg_iter"] = t["per_pcg_iter"]
+        row["launches_device_path"] = (
+            device_path["launches"][name] if name == "btake_rows"
+            else device_path["out"]["launches_solves"][name])
+        kernels.append(row)
     emit({"kernels": kernels})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(card["smi"], flush=True)

@@ -1,10 +1,12 @@
 """hypre_tpu_torch — the PyTorch and CUDA port of ``hypre_tpu``.
 
 The JAX package ``hypre_tpu`` beside it is the reference; this package
-runs the same algorithms on an NVIDIA GPU.  Host setup (strength,
-coarsening, interpolation, RAP) is the same numpy/OpenMP code; the
-solve phase is PyTorch tensors on the card, with the TPU's Pallas
-kernels replaced by hand-written CUDA kernels (``csrc/*.cu``).
+runs the same algorithms on an NVIDIA GPU.  The AMG setup runs either
+on the host (``BoomerAMG.setup``: strength, coarsening, interpolation,
+RAP as the same numpy/OpenMP code) or on the card
+(``BoomerAMG.setup_device``: torch operations in f64); the solve phase
+is PyTorch tensors on the card, with the TPU's Pallas kernels replaced
+by hand-written CUDA kernels (``csrc/*.cu``).
 
 It imports torch, numpy and scipy, never jax and nothing of
 ``hypre_tpu``.  Entry points run on ``cuda`` unless the caller asks for
@@ -15,9 +17,10 @@ Subpackages
 core     — config (dtype, device), timing, error state
 gen      — problem generators (Laplacians)
 setup    — host AMG setup: strength, PMIS/HMIS, direct and ext+i
-           interpolation, l1 norms
-csrc     — host OpenMP setup kernels and the CUDA solve kernels
-ops      — solve-phase operators: stencil, CSR, dense
+           interpolation, l1 norms; device_amg: the same on the card
+csrc     — host OpenMP setup kernels and the CUDA kernels
+ops      — solve-phase operators (stencil, CSR, dense) and the device
+           setup's gather (btake)
 solvers  — BoomerAMG (V-cycle) and PCG
 convert  — carries a hypre_tpu hierarchy (as numpy arrays) across
 """

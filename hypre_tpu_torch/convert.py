@@ -19,6 +19,10 @@ and this module rebuilds them as the port's operators:
 
 Each operator is given as a dict with a ``kind`` key ("stencil",
 "gstell", "ell", "dia", "dense") and that format's arrays.
+
+``dell_from_numpy`` carries an operator of the reference's device setup
+(a ``DEll``: slot-major ``cols``/``vals``) across unchanged, so the
+port's device-setup stages can be fed the reference's own inputs.
 """
 from __future__ import annotations
 
@@ -93,6 +97,20 @@ def operator_from_numpy(op: dict, dtype=None, device=None) -> SparseOp:
     else:
         raise ValueError(f"unknown operator kind {kind!r}")
     return csr_from_scipy(A, dtype, device)
+
+
+def dell_from_numpy(cols, vals, n_cols: int, device=None):
+    """A reference DEll (np.asarray of its cols (w, n) and vals) as the
+    port's DEll on the configured device: the same slots, f64 values."""
+    from hypre_tpu_torch.setup.device_amg import DEll
+
+    device = device if device is not None else get_device()
+    return DEll(
+        cols=torch.as_tensor(np.array(cols, dtype=np.int32),
+                             device=device),
+        vals=torch.as_tensor(np.array(vals, dtype=np.float64),
+                             device=device),
+        n_cols=int(n_cols))
 
 
 def lu_pivots_from_jax(piv) -> torch.Tensor:

@@ -28,7 +28,8 @@ class Config:
     real_dtype: value dtype of the solve phase.  float64 mirrors
                 hypre's default build and is the card's native f64;
                 float32 mirrors --enable-single.  Setup always runs in
-                f64 on the host.
+                f64: on the host (setup) or on the device
+                (setup_device).
     device:     "cuda" (default) or "cpu".
     """
 
@@ -60,6 +61,13 @@ def get_device() -> torch.device:
             "is available; call set_config(Config(device='cpu')) to run "
             "on the CPU")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU):
+    the setup's stage timings end with it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def as_real(x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:

@@ -7,7 +7,8 @@ loaded with ctypes:
 * ``setup_kernels.cpp`` — host OpenMP C++ for the setup phase's graph
   algorithms, built with g++.  Every function has a vectorized-numpy
   twin in ``hypre_tpu_torch/setup/``.
-* ``*.cu`` — the hand-written Hopper kernels of the solve phase, built
+* ``*.cu`` — the hand-written Hopper kernels (the solve phase's matvecs
+  and the device setup's gather), built
   with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into one shared
   library per source, each with a plain C interface (pointers and the
   stream passed as ``void*``; every entry returns ``cudaGetLastError()``
@@ -28,7 +29,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(HERE), "_build")
-CUDA_SOURCES = ("stencil_matvec.cu", "csr_spmv.cu")
+CUDA_SOURCES = ("stencil_matvec.cu", "csr_spmv.cu", "btake.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

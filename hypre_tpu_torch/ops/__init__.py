@@ -1,6 +1,9 @@
 from hypre_tpu_torch.ops.formats import (  # noqa: F401
     CsrMatrix, DenseMatrix, SparseOp, StencilOp, matvec,
-    sparse_op_from_scipy,
+    sparse_op_from_dell, sparse_op_from_scipy,
+)
+from hypre_tpu_torch.ops.btake import (  # noqa: F401
+    btake, btake_rows, btake_rows_plain,
 )
 from hypre_tpu_torch.ops.spmv import csr_spmv, csr_spmv_plain  # noqa: F401
 from hypre_tpu_torch.ops.stencil import (  # noqa: F401

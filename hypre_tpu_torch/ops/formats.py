@@ -13,6 +13,11 @@ phase stores:
 
 The reference's ELL, DIA and GST-ELL formats are not carried over: CSR
 takes their place on the card (DIA's kernel is K3 in ROADMAP Queue 2).
+
+``sparse_op_from_dell`` packs an operator of the device setup (a
+``setup/device_amg.DEll`` on the card) straight into these formats with
+no host round trip: the counterpart of hypre_tpu/ops/gstell_device.py
+``sparse_op_from_dell`` / ``dense_from_dell`` (:367-389).
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from hypre_tpu_torch.ops.spmv import CsrMatrix, csr_from_scipy, csr_spmv
+from hypre_tpu_torch.ops.spmv import (
+    CsrMatrix, csr_from_scipy, csr_spmv, group_size,
+)
 from hypre_tpu_torch.ops.stencil import StencilOp, stencil_matvec
 
 DENSE_MAX = 2048   # dense at this many rows and columns or fewer
@@ -75,3 +82,46 @@ def sparse_op_from_scipy(A, dtype: torch.dtype | None = None,
     if max(A.shape) <= DENSE_MAX and min(A.shape) > 0:
         return dense_from_scipy(A, dtype, device)
     return csr_from_scipy(A, dtype, device)
+
+
+def dense_from_dell(M, dtype: torch.dtype | None = None) -> DenseMatrix:
+    """A device-setup operator (slot-major cols/vals) as a DenseMatrix on
+    its own device (small coarse levels)."""
+    from hypre_tpu_torch.core.config import get_config
+
+    dtype = dtype or get_config().real_dtype
+    w, n = M.cols.shape
+    valid = M.cols >= 0
+    rows = torch.arange(n, device=M.cols.device)[None, :].expand(w, n)
+    flat = (rows * M.n_cols + M.cols)[valid]
+    dense = torch.zeros(n * M.n_cols, dtype=dtype, device=M.cols.device)
+    dense.index_add_(0, flat, M.vals[valid].to(dtype))
+    return DenseMatrix(vals=dense.reshape(n, M.n_cols))
+
+
+def csr_from_dell(M, dtype: torch.dtype | None = None) -> CsrMatrix:
+    """A device-setup operator as a CsrMatrix on its own device: each
+    row's valid slots, in slot order (ascending columns)."""
+    from hypre_tpu_torch.core.config import get_config
+
+    dtype = dtype or get_config().real_dtype
+    cols_t = M.cols.t()                                  # (n, w) view
+    valid = cols_t >= 0
+    counts = valid.sum(1)
+    indptr = torch.zeros(M.n_rows + 1, dtype=torch.int64,
+                         device=M.cols.device)
+    torch.cumsum(counts, 0, out=indptr[1:])
+    nnz = int(indptr[-1])
+    return CsrMatrix(
+        indptr=indptr, indices=cols_t[valid].to(torch.int32),
+        values=M.vals.t()[valid].to(dtype), n_rows=M.n_rows,
+        n_cols=M.n_cols, group=group_size(M.n_rows, nnz))
+
+
+def sparse_op_from_dell(M, dtype: torch.dtype | None = None) -> SparseOp:
+    """Format dispatch for device-built operators, the twin of
+    sparse_op_from_scipy: dense at 2048 rows and columns or fewer, CSR
+    otherwise."""
+    if max(M.shape) <= DENSE_MAX and min(M.shape) > 0:
+        return dense_from_dell(M, dtype)
+    return csr_from_dell(M, dtype)

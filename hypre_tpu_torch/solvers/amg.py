@@ -1,13 +1,19 @@
-"""BoomerAMG: host setup + V-cycle solve on the card.
+"""BoomerAMG: host or device setup + V-cycle solve on the card.
 
 Port of hypre_tpu/solvers/amg.py, cut to the branches that hypre's
 out.14 benchmark and the ij driver's solver 1 with interp 3 or 6
 reach (setup driver ref: src/parcsr_ls/par_amg_setup.c:29; cycle ref:
-par_cycle.c:23; solve ref: par_amg_solve.c:22).  The setup runs on the
-host (numpy plus the OpenMP kernels, f64) and is the reference's own
-algorithm, so the hierarchy is the same bit for bit; the solve phase
-runs eagerly on torch tensors: l1/weighted Jacobi smoothing, a V-cycle,
-and a dense LU on the coarsest level.
+par_cycle.c:23; solve ref: par_amg_solve.c:22).  Two setups:
+
+* ``setup`` runs on the host (numpy plus the OpenMP kernels, f64) and
+  is the reference's own algorithm, so the hierarchy is the same bit for
+  bit;
+* ``setup_device`` runs the whole setup on the card in f64
+  (setup/device_amg.py, the counterpart of the reference's
+  ``setup_device``, amg.py:526-666) and packs each level there.
+
+The solve phase runs eagerly on torch tensors: l1/weighted Jacobi
+smoothing, a V-cycle, and a dense LU on the coarsest level.
 
 Options of AmgConfig that the slice does not carry raise
 NotImplementedError at setup.  ``prefer_dia`` is accepted and has no
@@ -24,8 +30,13 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from hypre_tpu_torch.core.config import as_real, get_config, get_device
-from hypre_tpu_torch.ops.formats import SparseOp, matvec, sparse_op_from_scipy
+from hypre_tpu_torch.core.config import (
+    as_real, get_config, get_device, synchronize,
+)
+from hypre_tpu_torch.ops.formats import (
+    SparseOp, dense_from_dell, matvec, sparse_op_from_dell,
+    sparse_op_from_scipy,
+)
 from hypre_tpu_torch.ops.stencil import stencil_op
 from hypre_tpu_torch.setup.coarsen import C_PT, hmis, pmis
 from hypre_tpu_torch.setup.interp import direct_interp
@@ -79,6 +90,7 @@ class AmgConfig:
 
 
 PORTED_RELAX = (18, 0, 7)
+DEVICE_RELAX_LATER = (16, 11, 12)     # the reference's device setup has them
 
 
 def check_ported(cfg: AmgConfig) -> None:
@@ -185,6 +197,7 @@ class BoomerAMG:
         self.level_nnz: list[int] = []
         self.grid_complexity = 1.0
         self.operator_complexity = 1.0
+        self.setup_stats: list[dict] = []
 
     # -- setup --------------------------------------------------------
 
@@ -250,6 +263,111 @@ class BoomerAMG:
             P=sparse_op_from_scipy(Ph, dtype, device),
             R=sparse_op_from_scipy(Rh, dtype, device),
             dinv=torch.as_tensor(dinv, dtype=dtype, device=device))
+
+    # -- device-resident setup ------------------------------------------
+
+    def setup_device(self, A=None, *, stencil=None) -> "BoomerAMG":
+        """Device-resident setup: the whole setup phase runs on the card
+        in f64 (setup/device_amg.py builds the hierarchy, ops/formats.py
+        packs each level), the analog of hypre's device setup path (ref:
+        src/parcsr_ls/par_amg_setup.c:29 with exec policy DEVICE).  The
+        host sees only per-level scalars.
+
+        A: a scipy matrix (uploaded once) or a device_amg.DEll; or
+        stencil=(shape, entries), which generates the fine operator on
+        the card (ref: par_laplace.c:63); level 0 is then a StencilOp
+        applied by kernel K1.  Always coarsens by PMIS, as the reference
+        does.  Relax 18/0/7 only.
+
+        After it, ``setup_stats`` holds one dict per level: the wall
+        seconds of strength, PMIS (and its rounds), interpolation, RAP
+        and packing, with the widths."""
+        from hypre_tpu_torch.setup import device_amg as dev
+
+        cfg = self.config
+        if cfg.relax_type in DEVICE_RELAX_LATER:
+            raise NotImplementedError(
+                f"relax_type {cfg.relax_type} on the device setup is not in "
+                "the port yet (see ROADMAP.md Queue 1, slice 3)")
+        if cfg.relax_type not in PORTED_RELAX:
+            raise ValueError(
+                f"relax_type {cfg.relax_type} needs host factorization;"
+                " use setup()")
+        check_ported(cfg)
+        device = get_device()
+        dtype = get_config().real_dtype
+        t0 = time.perf_counter()
+
+        def trace(msg):
+            if cfg.print_level >= 1:
+                print(f"  [amg setup_device +{time.perf_counter() - t0:7.3f}s]"
+                      f" {msg}", file=sys.stderr, flush=True)
+
+        fine_op = None
+        if stencil is not None:
+            shape, entries = stencil
+            A = dev.dell_stencil(shape, entries, torch.float64, device)
+            fine_op = stencil_op(shape, entries, dtype=dtype)
+            trace("fine operator generated on the device")
+        elif not isinstance(A, dev.DEll):
+            A = dev.dell_from_scipy(A, torch.float64, device)
+        else:
+            A = dev.DEll(cols=A.cols.to(device),
+                         vals=A.vals.to(device, torch.float64),
+                         n_cols=A.n_cols)
+
+        levels = []
+        self.level_sizes, self.level_nnz = [], []
+        self.setup_stats = []
+        Al = None
+        for item in dev.iter_device_hierarchy(A, cfg, self.setup_stats,
+                                              trace):
+            if not isinstance(item, tuple):
+                Al = item
+                break
+            t1 = time.perf_counter()
+            Ah = item[0]
+            self.level_sizes.append(Ah.n_rows)
+            self.level_nnz.append(int(Ah.mask.sum()))
+            a_op = fine_op if not levels else None
+            levels.append(self._build_dev_level_dell(*item, a_op=a_op,
+                                                     dtype=dtype))
+            synchronize(device)
+            self.setup_stats[len(levels) - 1]["pack_s"] = \
+                time.perf_counter() - t1
+            trace(f"level {len(levels) - 1} packed (n={Ah.n_rows}, "
+                  f"nnz={self.level_nnz[-1]}, "
+                  f"fmt={type(levels[-1].A).__name__})")
+        # coarsest level: dense LU on the device
+        self.level_sizes.append(Al.n_rows)
+        self.level_nnz.append(int(Al.mask.sum()))
+        dense = dense_from_dell(Al, dtype)
+        levels.append(AmgLevel(A=dense, P=None, R=None, dinv=None))
+        c_lu, c_piv = torch.linalg.lu_factor(dense.vals)
+        synchronize(device)
+        trace(f"coarsest dense LU (n={Al.n_rows})")
+
+        self.hierarchy = AmgHierarchy(
+            levels=tuple(levels), c_lu=c_lu, c_piv=c_piv,
+            relax_weight=cfg.relax_weight, num_sweeps=cfg.num_sweeps)
+        self.grid_complexity = sum(self.level_sizes) / self.level_sizes[0]
+        self.operator_complexity = sum(self.level_nnz) / self.level_nnz[0]
+        return self
+
+    def _build_dev_level_dell(self, Al, P, PT, cf, a_op=None, *,
+                              dtype) -> AmgLevel:
+        """Pack one device-built level (amg.py:623-654): A (unless the
+        stencil operator stands in for it), P, R = P^T and the smoother's
+        inverse l1 diagonal, all on the card."""
+        from hypre_tpu_torch.setup import device_amg as dev
+
+        l1 = dev.device_l1_norms(Al, l1_option_for_relax(
+            self.config.relax_type))
+        return AmgLevel(
+            A=a_op if a_op is not None else sparse_op_from_dell(Al, dtype),
+            P=sparse_op_from_dell(P, dtype),
+            R=sparse_op_from_dell(PT, dtype),
+            dinv=(1.0 / l1).to(dtype))
 
     @property
     def level_formats(self) -> list[str]:

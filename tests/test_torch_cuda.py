@@ -7,7 +7,8 @@ On a machine with an NVIDIA GPU and nvcc run them with
 
 (the first test builds the kernels).  Tolerance: max |kernel - plain|
 over the largest |A| |x| term, f64 1e-12, f32 1e-5 — the two sum in
-other orders and the kernels contract multiply-adds."""
+other orders and the kernels contract multiply-adds.  K4 (a gather) and
+the device setup are held to bit-for-bit equality."""
 import dataclasses
 
 import numpy as np
@@ -18,7 +19,9 @@ from torch_port_helpers import LAPLACE_27PT, LAPLACE_7PT, rel_diff
 
 from hypre_tpu_torch import Config, set_config
 from hypre_tpu_torch.gen import laplacian
+from hypre_tpu_torch.ops.btake import btake_rows, btake_rows_plain
 from hypre_tpu_torch.ops.spmv import csr_from_scipy, csr_spmv, csr_spmv_plain
+from hypre_tpu_torch.setup import device_amg as dev
 from hypre_tpu_torch.ops.stencil import (
     stencil_matvec, stencil_matvec_plain, stencil_op,
 )
@@ -86,3 +89,45 @@ def test_pcg_on_card_matches_cpu(card):
         out[device] = (res.iters, res.x.cpu().numpy())
     assert out["cuda"][0] == out["cpu"][0]
     assert rel_diff(out["cuda"][1], out["cpu"][1]) <= 1e-10
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.float64,
+                                   torch.bool])
+def test_btake_kernel_matches_plain(card, dtype, K):
+    g = torch.Generator(card).manual_seed(K)
+    n_src, S, n = 70_001, 9, 50_003
+    idx = torch.randint(-1, n_src, (S, n), generator=g, device=card,
+                        dtype=torch.int32)
+    X = torch.randint(-1000, 1000, (K, n_src), generator=g,
+                      device=card).to(dtype)
+    before = btake_rows.launches
+    Y = btake_rows(idx, X, fill=-1 if dtype == torch.int32 else 0)
+    torch.cuda.synchronize()
+    assert btake_rows.launches == before + 1
+    assert torch.equal(Y, btake_rows_plain(
+        idx, X, fill=-1 if dtype == torch.int32 else 0))
+
+
+def test_setup_device_on_card_matches_cpu(card):
+    """16^3: the card's device hierarchy equals the CPU's bit for bit
+    (CF, A, P, R), and setup_device reports the same shape."""
+    n = 16
+    out = {}
+    for device in ("cuda", "cpu"):
+        set_config(Config(device=device))
+        items = list(dev.iter_device_hierarchy(
+            dev.dell_stencil((n, n, n), LAPLACE_7PT),
+            AmgConfig(interp_type=6)))
+        amg = BoomerAMG(AmgConfig(interp_type=6)).setup_device(
+            stencil=((n, n, n), LAPLACE_7PT))
+        out[device] = (items, amg.level_sizes, amg.level_nnz)
+    (gi, gs, gn), (ci, cs, cn) = out["cuda"], out["cpu"]
+    assert gs == cs and gn == cn
+    for g_lvl, c_lvl in zip(gi[:-1], ci[:-1]):
+        for a, b in zip(g_lvl, c_lvl):
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a.cpu(), b)
+            else:
+                assert torch.equal(a.cols.cpu(), b.cols)
+                assert torch.equal(a.vals.cpu(), b.vals)

@@ -3,7 +3,13 @@
 The port imports nothing of hypre_tpu, so a reference object crosses
 over as numpy arrays: ``op_dict`` turns a hypre_tpu solve-format
 operator into the dict that hypre_tpu_torch.convert takes, and
-``hierarchy_dicts`` does so for a whole hypre_tpu AmgHierarchy.
+``hierarchy_dicts`` does so for a whole hypre_tpu AmgHierarchy.  For the
+device setup, ``dell_to_port`` carries a reference DEll across,
+``stage_operators`` gives the stage tests' operators,
+``check_extpi_equal`` holds one ext+i stage against the reference's and
+``ref_device_hierarchy`` chains the reference's stage functions into a
+whole hierarchy.  Reference modules are imported inside the functions:
+this module is imported by every port test.
 """
 from __future__ import annotations
 
@@ -69,3 +75,171 @@ def assert_csr_equal(a, b) -> None:
 def rel_diff(x, y) -> float:
     x, y = np.asarray(x), np.asarray(y)
     return float(np.linalg.norm(x - y) / np.linalg.norm(y))
+
+
+def dell_to_port(M):
+    """A reference device-setup DEll as the port's (the same slots)."""
+    from hypre_tpu_torch.convert import dell_from_numpy
+
+    return dell_from_numpy(np.array(M.cols), np.array(M.vals), M.n_cols)
+
+
+def assert_ops_close(a, b, tol: float = 1e-12) -> None:
+    """Two scipy operators within tol of the first one's largest entry."""
+    assert a.shape == b.shape
+    scale = max(abs(a).max() if a.nnz else 0.0, 1e-300)
+    diff = abs(a - b)
+    assert (diff.max() if diff.nnz else 0.0) <= tol * scale
+
+
+def rand_csr(n, m, density, seed, spd=False):
+    rng = np.random.default_rng(seed)
+    A = sp.random(n, m, density=density, random_state=rng, format="csr")
+    if spd:
+        A = (-(A + A.T) + sp.eye(n) * 2.0 * n * density * 2).tocsr()
+    A.sort_indices()
+    return A
+
+
+STAGE_STENCILS = ("lap7", "lap27")
+STAGE_MATRICES = ("difconv", "rand_spd")
+
+
+def stage_operators(names=STAGE_STENCILS + STAGE_MATRICES) -> dict:
+    """Reference DEll operators of the stage tests: stencils (the
+    reference keeps their arm structure) and matrices that are no
+    stencil."""
+    import jax.numpy as jnp
+
+    from hypre_tpu.gen.laplace import difconv
+    from hypre_tpu.setup import device_amg as ref
+
+    make = {
+        "lap7": lambda: ref.dell_stencil((7, 6, 5), LAPLACE_7PT,
+                                         dtype=jnp.float64),
+        "lap27": lambda: ref.dell_stencil((6, 5, 4), LAPLACE_27PT,
+                                          dtype=jnp.float64),
+        "difconv": lambda: ref.dell_from_scipy(
+            difconv(5, 5, 5, ax=1.1).tocsr(), np.float64),
+        "rand_spd": lambda: ref.dell_from_scipy(
+            rand_csr(80, 80, 0.06, 3, True), np.float64),
+    }
+    return {name: make[name]() for name in names}
+
+
+def check_extpi_equal(M, max_elmts: int) -> None:
+    """ext+i interpolation of the port against hypre_tpu's on one
+    reference operator: the same strong mask and CF go into both; P
+    within 1e-12 of its largest entry.  max_elmts=4 keeps the largest
+    entries of each row; a 27-pt row holds many ties, so this holds only
+    if the values before the truncation agree to the last bit."""
+    import jax.numpy as jnp
+    import torch
+
+    from hypre_tpu.setup import device_amg as ref
+    from hypre_tpu_torch.setup import device_amg as dev
+
+    strong = ref.device_strength(M, 0.25, 0.9)
+    cf = ref.device_pmis(M, strong, seed=2747)
+    nc = int(jnp.sum(cf == ref.C_PT))
+    P_ref = ref.device_extpi_interp(M, strong, cf, n_coarse=nc,
+                                    trunc_factor=0.0, max_elmts=max_elmts,
+                                    chunk=128)
+    P = dev.device_extpi_interp(
+        dell_to_port(M), torch.as_tensor(np.array(strong)),
+        torch.as_tensor(np.array(cf)), n_coarse=nc, trunc_factor=0.0,
+        max_elmts=max_elmts, chunk=53)
+    assert_ops_close(ref.dell_to_scipy(P_ref), dev.dell_to_scipy(P))
+
+
+def ref_device_hierarchy(shape, entries, chunk: int = 128):
+    """hypre_tpu's device hierarchy of a stencil problem (interp 6,
+    relax 18), chained from its stage functions the way its
+    iter_device_hierarchy does (hypre_tpu/setup/device_amg.py:949-990):
+    device_strength, device_pmis, device_extpi_interp, dell_pad_width,
+    and the RAP of device_rap's CPU branch (SpGEMM widths and products,
+    device_transpose).  Explicit small chunks: the reference's own
+    choices pad even tiny levels to 262,144 lanes and take minutes here.
+
+    Returns (levels, coarsest): each level (A, P, R as scipy, cf as
+    numpy, A's valid-slot count), and (coarsest A, its count)."""
+    import jax.numpy as jnp
+
+    from hypre_tpu.setup import device_amg as ref
+    from hypre_tpu.solvers.amg import AmgConfig
+
+    cfg = AmgConfig(interp_type=6, relax_type=18)
+    levels = []
+    Al = ref.dell_stencil(shape, entries, dtype=jnp.float64)
+    for _ in range(cfg.max_levels - 1):
+        n = Al.n_rows
+        if n <= cfg.max_coarse_size:
+            break
+        strong = ref.device_strength(Al, cfg.strong_threshold,
+                                     cfg.max_row_sum)
+        cf = ref.device_pmis(Al, strong, seed=cfg.seed)
+        n_coarse = int(jnp.sum(cf == ref.C_PT))
+        if n_coarse == 0 or n_coarse == n:
+            break
+        P = ref.dell_pad_width(ref.device_extpi_interp(
+            Al, strong, cf, n_coarse=n_coarse,
+            trunc_factor=cfg.trunc_factor, max_elmts=cfg.p_max_elmts,
+            chunk=chunk))
+        AP = ref.device_spgemm(Al, P, ref.device_spgemm_width(Al, P, chunk),
+                               chunk)
+        PT = ref.dell_pad_width(ref.device_transpose(
+            P, ref.device_transpose_width(P)))
+        Ac = ref.device_spgemm(PT, AP,
+                               ref.device_spgemm_width(PT, AP, chunk), chunk)
+        levels.append((ref.dell_to_scipy(Al), ref.dell_to_scipy(P),
+                       ref.dell_to_scipy(PT), np.asarray(cf),
+                       int(jnp.sum(Al.mask))))
+        Al = ref.dell_pad_width(Ac)
+    return levels, (ref.dell_to_scipy(Al), int(jnp.sum(Al.mask)))
+
+
+def port_device_hierarchy(shape, entries):
+    """The port's device hierarchy of the same problem on the CPU:
+    (iter_device_hierarchy's items, the BoomerAMG of setup_device)."""
+    from hypre_tpu_torch import Config, set_config
+    from hypre_tpu_torch.setup import device_amg as dev
+    from hypre_tpu_torch.solvers import AmgConfig, BoomerAMG
+
+    set_config(Config(device="cpu"))
+    cfg = AmgConfig(interp_type=6, relax_type=18)
+    items = list(dev.iter_device_hierarchy(dev.dell_stencil(shape, entries),
+                                           cfg))
+    return items, BoomerAMG(cfg).setup_device(stencil=(shape, entries))
+
+
+HIERARCHY_CHECKS = ("level_sizes", "cf_bitwise", "A", "P", "R",
+                    "coarsest", "setup_device")
+
+
+def check_device_hierarchy(ref_side, items, amg, which: str) -> None:
+    """One check of the port's hierarchy against the reference's: level
+    sizes; CF bit for bit; A, P or R within 1e-12 at every level; the
+    coarsest A; setup_device's sizes, nonzeros (valid slots) and
+    operator complexity."""
+    from hypre_tpu_torch.setup.device_amg import dell_to_scipy
+
+    levels, coarsest = ref_side
+    sizes = [lv[0].shape[0] for lv in levels] + [coarsest[0].shape[0]]
+    if which == "level_sizes":
+        assert len(levels) >= 2
+        assert [it[0].n_rows for it in items[:-1]] + [items[-1].n_rows] \
+            == sizes
+    elif which == "cf_bitwise":
+        for lv, it in zip(levels, items[:-1]):
+            assert np.array_equal(it[3].numpy(), lv[3])
+    elif which in ("A", "P", "R"):
+        k = "APR".index(which)
+        for lv, it in zip(levels, items[:-1]):
+            assert_ops_close(lv[k], dell_to_scipy(it[k]))
+    elif which == "coarsest":
+        assert_ops_close(coarsest[0], dell_to_scipy(items[-1]))
+    else:
+        nnz = [lv[4] for lv in levels] + [coarsest[1]]
+        assert amg.level_sizes == sizes and amg.level_nnz == nnz
+        assert amg.operator_complexity == sum(nnz) / nnz[0]
+        assert len(amg.setup_stats) == len(levels)
