@@ -11,10 +11,13 @@ Phases, each printing one JSON line:
 2. build   — the CUDA kernels (nvcc, one process per source, started
              together) and the host OpenMP setup library (g++); fails
              unless native setup is on.
-3. kernel_checks (synthetic) — K1 stencil_matvec and K2 csr_spmv against
-             their plain PyTorch versions on the card, f32 and f64: K1 on
-             7-pt and 27-pt stencils over odd grids and 256^3, K2 on
-             random CSR at every thread-group size; K4 btake_rows bit
+3. kernel_checks (synthetic) — K1 stencil_matvec, K2 csr_spmv and K3
+             dia_matvec against their plain PyTorch versions on the card,
+             f32 and f64: K1 on 7-pt and 27-pt stencils over odd grids and
+             256^3, K2 on random CSR at every thread-group size, K3 on 7-pt
+             and 27-pt operators over odd grids, a 2D 9-pt operator, a
+             rectangular operator with offsets past either end and one of
+             40 diagonals; K4 btake_rows bit
              for bit: int32/f32/f64, K = 1 and 3, random and banded index
              sets with -1 holes, sources smaller and larger than the
              50 MB L2.
@@ -26,7 +29,7 @@ Phases, each printing one JSON line:
              unless the level sizes and operator complexity match the
              reference's and the true relative residual is <= 1e-8.
 5. kernel_checks (hierarchy) — K2 on the hierarchy's own operators
-             (levels 1-4 A, P0, R0), f32 and f64.
+             (every CSR A, P and R), f32 and f64.
 6. kernel_timing — each kernel on its 256^3 operators: CUDA-event
              median of 20 launches, beside its plain version, one PyTorch
              library call computing the same function, and the bound
@@ -54,6 +57,27 @@ Phases, each printing one JSON line:
              int32 sources) and one chunk of level 0's P^T (A P) row
              expansion, beside its plain version, index_select and the
              bound.
+12. ij_driver — hypre's ij driver through hypre_tpu_torch.drivers.ij.run
+             at -n 100 100 100 (10^6 rows, the largest round cube under
+             the reference's DIA limit) in f64 on the card: (a) -solver 1
+             with the driver's defaults (HMIS, ext+i, relax 13/14, PCG,
+             tol 1e-8), (b) -solver 2 (DS-PCG).  Launch counts are zeroed
+             just before each run and read just after it; then three more
+             timed solves.  Fails unless level 0 is a DiaMatrix, K3 was
+             launched, the true relative residual is <= 1e-8, the
+             iteration count equals the reference's (REF_IJ_ITERS) and,
+             for (a), the levels and formats are the reference's.  Then
+             every A, P and R of (a)'s hierarchy against its kernel's
+             plain version, f64 and f32 (K3 on the DIA levels 0-1, K2 on
+             the rest; phase kernel_checks), and one V-cycle and one A x
+             of (a) under torch.profiler (phase profile).
+13. golden_on_card — every row of tests/golden/solvers.jobs that the
+             port runs, without -exec_host, on the card, against
+             solvers.saved by runtest's rule (equal iterations, residual
+             no worse than rtol 1e-3).
+14. kernel_timing (K3) — dia_matvec on the 100^3 operator of (a), f64
+             and f32, beside its plain version, torch.sparse.mm and the
+             bound.
 
 Then the kernels line, nvidia-smi's line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises: nothing is
@@ -67,6 +91,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -74,8 +99,13 @@ import torch
 from hypre_tpu_torch import Config, set_config
 from hypre_tpu_torch.csrc import build
 from hypre_tpu_torch.gen import laplacian
+from hypre_tpu_torch.drivers import ij
+from hypre_tpu_torch.gen import laplacian_9pt, laplacian_27pt
 from hypre_tpu_torch.ops.btake import btake_rows, btake_rows_plain
-from hypre_tpu_torch.ops.formats import CsrMatrix
+from hypre_tpu_torch.ops.dia import (
+    DiaMatrix, dia_from_scipy, dia_matvec, dia_matvec_plain,
+)
+from hypre_tpu_torch.ops.formats import CsrMatrix, matvec
 from hypre_tpu_torch.ops.spmv import (
     csr_from_scipy, csr_spmv, csr_spmv_plain,
 )
@@ -85,6 +115,7 @@ from hypre_tpu_torch.ops.stencil import (
 from hypre_tpu_torch.setup import device_amg as dev
 from hypre_tpu_torch.setup.utils import native_enabled
 from hypre_tpu_torch.solvers import AmgConfig, BoomerAMG, pcg
+from hypre_tpu_torch.testing import runtest
 
 LAPLACE_7PT = [((0, 0, 0), 6.0), ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0),
                ((0, -1, 0), -1.0), ((0, 1, 0), -1.0),
@@ -105,6 +136,20 @@ REF_OPERATOR_COMPLEXITY = 2.775
 REF_DEVICE_LEVELS = [4096, 1383, 213, 30, 4]
 REF_DEVICE_NNZ = [27136, 33519, 9333, 732, 16]
 REF_DEVICE_OPERATOR_COMPLEXITY = 2.6067216981132075
+# hypre_tpu's ij driver (hypre_tpu/drivers/ij.py, run as a module) at
+# 100^3 on the CPU in f64:
+#   -n 100 100 100 -solver 1 -exec_host
+#     Iterations = 12, Final Relative Residual Norm = 7.407588e-09
+#   -n 100 100 100 -solver 2 -exec_host
+#     Iterations = 249, Final Relative Residual Norm = 8.735489e-09
+IJ_GRID = 100
+REF_IJ_ITERS = {1: 12, 2: 249}
+# the reference's hierarchy of the same setup (its BoomerAMG with the
+# driver's defaults, hypre_tpu/solvers/amg.py, on the CPU): sizes, and
+# formats as the port stores them (GstEllMatrix -> CsrMatrix)
+REF_IJ_LEVELS = [1000000, 500000, 157080, 46078, 7914, 1141, 153, 33, 15, 6]
+REF_IJ_FORMATS = ["DiaMatrix"] * 2 + ["CsrMatrix"] * 3 + ["DenseMatrix"] * 5
+GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
 # tolerance of a kernel against its plain version: max |kernel - plain|
 # over max(|A| |x|), the size of the terms summed (order of summation
 # and FMA contraction differ between the two)
@@ -158,12 +203,14 @@ def time_ms(fn, reps: int = 20) -> float:
 def reset_counts() -> None:
     stencil_matvec.launches = 0
     csr_spmv.launches = 0
+    dia_matvec.launches = 0
     btake_rows.launches = 0
 
 
 def read_counts() -> dict:
     return {"stencil_matvec": stencil_matvec.launches,
-            "csr_spmv": csr_spmv.launches, "btake_rows": btake_rows.launches}
+            "csr_spmv": csr_spmv.launches, "dia_matvec": dia_matvec.launches,
+            "btake_rows": btake_rows.launches}
 
 
 def rel_err(y, y_ref, scale) -> tuple[float, float]:
@@ -200,6 +247,49 @@ def check_csr(A: CsrMatrix, x, label: str) -> dict:
     return {"op": label, "shape": list(A.shape), "nnz": A.nnz,
             "group": A.group, "dtype": str(A.dtype), "max_abs_err": err,
             "rel_err": rel}
+
+
+def check_dia(A: DiaMatrix, x, label: str) -> dict:
+    y = dia_matvec(A, x)
+    torch.cuda.synchronize()
+    y_ref = dia_matvec_plain(A, x)
+    scale = dia_matvec_plain(dataclasses.replace(A, vals=A.vals.abs()),
+                             x.abs())
+    err, rel = rel_err(y, y_ref, scale)
+    if not (rel <= TOL[A.dtype] and bool(torch.isfinite(y).all())):
+        raise AssertionError(f"dia_matvec {label} {A.dtype}: rel err "
+                             f"{rel:.3e} > {TOL[A.dtype]:g}")
+    return {"op": label, "shape": list(A.shape), "n_diags": len(A.offsets),
+            "dtype": str(A.dtype), "max_abs_err": err, "rel_err": rel}
+
+
+def dia_synthetic(gen, dtype) -> list:
+    """K3 on stencil operators over odd grids, a 2D 9-pt operator, and two
+    built with values on every slot (so the masks at x's ends are read):
+    a rectangular one whose offsets fall wholly past either end, and one
+    of 40 diagonals (dia_from_scipy's most)."""
+    dev_ = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    ops = [(f"7pt {g}", dia_from_scipy(laplacian(*g), dtype, dev_))
+           for g in ((13, 9, 7), (101, 37, 29))]
+    ops += [(f"27pt {g}", dia_from_scipy(laplacian_27pt(*g), dtype, dev_))
+            for g in ((13, 9, 7), (65, 33, 17))]
+    ops.append(("9pt 2D (301, 207)",
+                dia_from_scipy(laplacian_9pt(301, 207), dtype, dev_)))
+    for label, offs, n_rows, n_cols in (
+            ("rect", (-1_100_000, -400_000, -1, 0, 7, 250_000, 800_000),
+             1_000_003, 700_001),
+            ("40 offsets", tuple(sorted(int(d) for d in rng.choice(
+                np.arange(-20_000, 20_000), 40, replace=False))),
+             2_000_003, 2_000_003)):
+        vals = torch.randn((len(offs), n_rows), generator=gen, device=dev_,
+                           dtype=dtype)
+        ops.append((label, DiaMatrix(vals=vals, offsets=offs, n_cols=n_cols)))
+    out = []
+    for label, A in ops:
+        x = torch.randn(A.n_cols, generator=gen, dtype=dtype, device=dev_)
+        out.append(check_dia(A, x, label))
+    return out
 
 
 def random_csr(n_rows, n_cols, max_row, band, rng):
@@ -305,11 +395,13 @@ def phase_synthetic_checks(gen) -> None:
         for g in (2, 4, 8, 16, 32):
             results.append(check_csr(dataclasses.replace(base, group=g), x,
                                      f"random G={g}"))
+        results += dia_synthetic(gen, dtype)
         torch.cuda.synchronize()
     results += btake_synthetic(gen)
     reset_counts()
     emit({"phase": "kernel_checks", "set": "synthetic",
-          "kernel_names": ["stencil_matvec", "csr_spmv", "btake_rows"],
+          "kernel_names": ["stencil_matvec", "csr_spmv", "dia_matvec",
+                           "btake_rows"],
           "n_checks": len(results),
           "worst_rel_err": max(r["rel_err"] for r in results),
           "checks": results})
@@ -378,48 +470,59 @@ def phase_main_path() -> dict:
     return {"amg": amg, "op": op, "launches": launches, "out": out}
 
 
-def hierarchy_ops(amg) -> list[tuple[str, CsrMatrix]]:
+def hierarchy_ops(amg, kinds=(CsrMatrix,)) -> list[tuple[str, object]]:
     ops = []
     for l, lvl in enumerate(amg.hierarchy.levels):
         for name in ("A", "P", "R"):
             m = getattr(lvl, name)
-            if isinstance(m, CsrMatrix):
+            if isinstance(m, kinds):
                 ops.append((f"{name}{l}", m))
     return ops
 
 
-def phase_hierarchy_checks(amg, gen) -> float:
+def phase_hierarchy_checks(amg, gen, path: str) -> dict:
+    """Every DIA and CSR operator of the hierarchy (A, P, R of each
+    level) against its kernel's plain version, f64 and f32; returns the
+    largest f64 error by kernel."""
     results = []
-    for label, A in hierarchy_ops(amg):
+    for label, A in hierarchy_ops(amg, (CsrMatrix, DiaMatrix)):
         for dtype in (torch.float64, torch.float32):
-            Ad = A if dtype == A.dtype else A.to(dtype)
+            if isinstance(A, DiaMatrix):
+                Ad = A if dtype == A.dtype else dataclasses.replace(
+                    A, vals=A.vals.to(dtype))
+                check, kernel = check_dia, "dia_matvec"
+            else:
+                Ad = A if dtype == A.dtype else A.to(dtype)
+                check, kernel = check_csr, "csr_spmv"
             x = torch.randn(A.n_cols, generator=gen, dtype=dtype,
                             device="cuda")
-            results.append(check_csr(Ad, x, label))
+            results.append(dict(check(Ad, x, label), kernel=kernel))
             del Ad
     torch.cuda.synchronize()
-    emit({"phase": "kernel_checks", "set": "hierarchy",
-          "kernel_names": ["csr_spmv"], "n_checks": len(results),
+    kernels = sorted({r["kernel"] for r in results})
+    emit({"phase": "kernel_checks", "set": "hierarchy", "path": path,
+          "kernel_names": kernels, "n_checks": len(results),
           "checks": results})
-    return max(r["max_abs_err"] for r in results
-               if r["dtype"] == str(torch.float64))
+    return {k: max(r["max_abs_err"] for r in results
+                   if r["kernel"] == k and r["dtype"] == str(torch.float64))
+            for k in kernels}
 
 
-def launches_per_iter(amg, op) -> dict:
-    """Kernel launches of one PCG iteration: one A·p plus one V-cycle."""
+def launches_per_iter(precondition, op) -> dict:
+    """Kernel launches of one PCG iteration: one A·p plus one
+    application of the preconditioner."""
     r = torch.ones(op.n_rows, dtype=F64, device="cuda")
     reset_counts()
-    amg.precondition(r)
-    stencil_matvec(op, r)
+    precondition(r)
+    matvec(op, r)
     torch.cuda.synchronize()
-    out = {"stencil_matvec": stencil_matvec.launches,
-           "csr_spmv": csr_spmv.launches}
+    out = read_counts()
     reset_counts()
     return out
 
 
 def phase_timing(amg, op, peaks, gen) -> dict:
-    per_iter = launches_per_iter(amg, op)
+    per_iter = launches_per_iter(amg.precondition, op)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     n = op.n_rows
@@ -489,9 +592,13 @@ def _kind(name: str) -> str:
         return "K1 stencil_matvec"
     if "csr_spmv_kernel" in name:
         return "K2 csr_spmv"
+    if "dia_matvec_kernel" in name:
+        return "K3 dia_matvec"
+    if "index" in name.lower() or "gather" in name.lower():
+        return "gathers (wavefront solve)"
     if "gemv" in name or "gemm" in name or "getrs" in name \
-            or "trsm" in name or "laswp" in name:
-        return "dense (torch.mv, lu_solve)"
+            or "trsm" in name or "trsv" in name or "laswp" in name:
+        return "dense (torch.mv, lu_solve, solve_triangular)"
     if "reduce" in name.lower() or "dot" in name.lower():
         return "reductions (dot, norm)"
     if "Memcpy" in name or "Memset" in name:
@@ -499,17 +606,17 @@ def _kind(name: str) -> str:
     return "elementwise"
 
 
-def phase_profile(amg, op) -> None:
-    """One solve under torch.profiler: device time by kernel and kind,
-    and the device's busy share of the (profiled) wall time."""
+def phase_profile(path: str, run, unit: str) -> None:
+    """`run()` under torch.profiler: device time by kernel and kind, and
+    the device's busy share of the (profiled) wall time.  `run` returns a
+    dict of facts about the work it did."""
     from torch.profiler import ProfilerActivity, profile
 
-    b = torch.ones(op.n_rows, dtype=F64, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = pcg(op, b, M=amg, tol=1e-8, max_iter=100)
+        facts = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     reset_counts()
@@ -526,11 +633,33 @@ def phase_profile(amg, op) -> None:
     for r in rows:
         by_kind[r["kind"]] = by_kind.get(r["kind"], 0.0) + r["ms"]
     busy = sum(r["ms"] for r in rows)
-    emit({"phase": "profile", "iters": res.iters, "wall_ms": wall_ms,
+    emit({"phase": "profile", "path": path, "unit": unit, **facts,
+          "wall_ms": wall_ms,
           "device_busy_ms": busy,
           "device_busy_share": busy / wall_ms if wall_ms else None,
           "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
           "top": rows[:12]})
+
+
+def profile_solve(amg, op) -> None:
+    """One whole out.14 solve under the profiler."""
+    b = torch.ones(op.n_rows, dtype=F64, device="cuda")
+    phase_profile("out.14 host setup", lambda: {"iters": pcg(
+        op, b, M=amg, tol=1e-8, max_iter=100).iters}, "one pcg solve")
+
+
+def profile_iteration(amg, op, path: str) -> None:
+    """One PCG iteration's V-cycle and A x under the profiler: the ij
+    (a) solve's ~50k launches an iteration make a whole solve's trace
+    cost minutes to gather."""
+    r = torch.ones(op.n_rows, dtype=F64, device="cuda")
+
+    def run():
+        amg.precondition(r)
+        matvec(op, r)
+        return {}
+
+    phase_profile(path, run, "one V-cycle and one A x")
 
 
 def phase_small_input() -> None:
@@ -686,8 +815,8 @@ def btake_timing_case(idx, X, fill, label, peaks) -> dict:
     del flat
     return {"case": label, "S": idx.shape[0], "n": idx.shape[1],
             "K": X.shape[0], "n_src": X.shape[1], "n_src_named": used,
-            "dtype": str(X.dtype), "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": t_b,
-            "bound_by": by, "bytes": n_bytes, "max_abs_err": err}
+            "dtype": str(X.dtype), "ms": t_k, "plain_ms": t_p,
+            "library_ms": t_l, "bound_ms": t_b, "bound_by": by, "bytes": n_bytes, "max_abs_err": err}
 
 
 def phase_btake_timing(peaks, setup_launches) -> dict:
@@ -741,6 +870,138 @@ def phase_btake_timing(peaks, setup_launches) -> dict:
     return out
 
 
+def phase_ij_driver() -> dict:
+    """(a) -solver 1 and (b) -solver 2 at 100^3 through drivers.ij.run."""
+    set_config(Config(real_dtype=F64, device="cuda"))
+    runs = {}
+    n = str(IJ_GRID)
+    for tag, solver in (("a", 1), ("b", 2)):
+        args = ij.build_parser().parse_args(["-n", n, n, n, "-solver",
+                                             str(solver)])
+        reset_counts()
+        out = ij.run(args)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        times, iters = [], [out["iters"]]
+        for t in range(3):
+            bt = out["b"] * (1.0 + 0.0137 * (t + 1))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = pcg(out["op"], bt, M=out["M"], tol=1e-8, max_iter=1000)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            iters.append(res.iters)
+        reset_counts()
+        b, x = out["b"], out["x"]
+        true_relres = float(torch.linalg.vector_norm(
+            b - dia_matvec_plain(out["op"], x)) / torch.linalg.vector_norm(b))
+        amg = out["amg"]
+        row = {
+            "phase": "ij_driver", "run": tag,
+            "command": f"ij -n {IJ_GRID} {IJ_GRID} {IJ_GRID} -solver {solver}",
+            "dtype": "float64", "rows": out["n"], "nnz": out["nnz"],
+            "levels": amg.level_sizes if amg else [out["n"]],
+            "operator_complexity": amg.operator_complexity if amg else 1.0,
+            "level_formats": out["level_formats"], "iters": out["iters"],
+            "iters_all_solves": iters, "reference_iters": REF_IJ_ITERS[solver],
+            "relres": out["relres"], "true_relres": true_relres,
+            "setup_s": out["setup_s"], "first_solve_s": out["solve_s"],
+            "solve_s": statistics.median(times), "solve_times_s": times,
+            "per_iter_ms": statistics.median(times) / max(out["iters"], 1)
+            * 1e3,
+            "launches": launches,
+            "launches_per_pcg_iter": launches_per_iter(
+                amg.precondition if amg else out["M"], out["op"])}
+        emit(row)
+        if not bool(torch.isfinite(x).all()) or x.shape != (out["n"],):
+            raise AssertionError(f"ij ({tag}): solution not finite or "
+                                 f"misshapen")
+        if out["level_formats"][0] != "DiaMatrix":
+            raise AssertionError(f"ij ({tag}): level 0 is "
+                                 f"{out['level_formats'][0]}, not DIA")
+        if launches["dia_matvec"] == 0:
+            raise AssertionError(f"ij ({tag}): dia_matvec was not launched")
+        if true_relres > 1e-8:
+            raise AssertionError(f"ij ({tag}): true relres {true_relres:.3e}")
+        if amg is not None and (amg.level_sizes != REF_IJ_LEVELS or
+                                out["level_formats"] != REF_IJ_FORMATS):
+            raise AssertionError(f"ij ({tag}): hierarchy differs from the "
+                                 f"reference's")
+        if set(iters) != {REF_IJ_ITERS[solver]}:
+            raise AssertionError(f"ij ({tag}): iterations {iters}, the "
+                                 f"reference's {REF_IJ_ITERS[solver]}")
+        runs[tag] = {"out": out, "row": row}
+    return runs
+
+
+def phase_golden_on_card() -> None:
+    """The golden rows the port runs, on the card (no -exec_host)."""
+    set_config(Config(real_dtype=F64, device="cuda"))
+    jobs = runtest.read_jobs(GOLDEN / "solvers.jobs")
+    saved = runtest.read_golden(GOLDEN / "solvers.saved")
+    rows, failures = [], []
+    for job, gold in zip(jobs, saved):
+        if not runtest.ported(job):
+            continue
+        card_job = " ".join(w for w in job.split() if w != "-exec_host")
+        reset_counts()
+        t0 = time.perf_counter()
+        result = runtest.run_job(card_job)
+        wall = time.perf_counter() - t0
+        fails = runtest.compare(card_job, result, gold)
+        failures += fails
+        rows.append({"job": card_job, "iters": result[0],
+                     "relres": result[1], "golden_iters": gold[0],
+                     "golden_relres": gold[1], "ok": not fails,
+                     "wall_s": wall, "launches": read_counts()})
+    reset_counts()
+    emit({"phase": "golden_on_card", "n_rows": len(rows),
+          "n_failed": len(failures), "rows": rows})
+    if failures:
+        raise AssertionError("golden rows on the card: " + "; ".join(failures))
+
+
+def phase_dia_timing(op: DiaMatrix, peaks, gen, per_iter) -> dict:
+    """K3 on the 100^3 operator of the ij run, f64 and f32."""
+    n = IJ_GRID
+    A = laplacian(n, n, n)
+    rows = {}
+    for dtype in (F64, torch.float32):
+        D = op if dtype == F64 else dataclasses.replace(
+            op, vals=op.vals.to(dtype))
+        x = torch.randn(D.n_cols, generator=gen, dtype=dtype, device="cuda")
+        err = check_dia(D, x, f"{n}^3 7pt")["max_abs_err"]
+        lib_A = torch.sparse_csr_tensor(
+            torch.as_tensor(A.indptr, dtype=torch.int32, device="cuda"),
+            torch.as_tensor(A.indices, dtype=torch.int32, device="cuda"),
+            torch.as_tensor(A.data, dtype=dtype, device="cuda"),
+            size=A.shape, check_invariants=False)
+        x2 = x.unsqueeze(1)
+        lib_diff = float((torch.sparse.mm(lib_A, x2)[:, 0]
+                          - dia_matvec(D, x)).abs().max())
+        t_k = time_ms(lambda: dia_matvec(D, x))
+        t_p = time_ms(lambda: dia_matvec_plain(D, x))
+        t_l = time_ms(lambda: torch.sparse.mm(lib_A, x2))
+        item = D.vals.element_size()
+        n_bytes = (len(D.offsets) * D.n_rows * item + D.n_cols * item
+                   + D.n_rows * item + len(D.offsets) * 8)
+        t_b, by = bound_ms(peaks, n_bytes, 2 * len(D.offsets) * D.n_rows,
+                           dtype)
+        rows[str(dtype)] = {
+            "shape": list(D.shape), "n_diags": len(D.offsets),
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+            "library": "torch.sparse.mm on a sparse_csr tensor",
+            "library_max_abs_diff": lib_diff, "bound_ms": t_b,
+            "bound_by": by, "bytes": n_bytes, "max_abs_err": err}
+        del lib_A, x, x2
+    reset_counts()
+    out = dict(rows[str(F64)])
+    out["per_pcg_iter"] = per_iter
+    emit({"phase": "kernel_timing", "kernel": "dia_matvec",
+          "dia_matvec": rows})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -751,14 +1012,15 @@ def main() -> int:
     phase_build()
     phase_synthetic_checks(gen)
     main_path = phase_main_path()
-    k2_err = phase_hierarchy_checks(main_path["amg"], gen)
+    k2_err = phase_hierarchy_checks(main_path["amg"], gen,
+                                    "out.14 host setup")["csr_spmv"]
     timing = phase_timing(main_path["amg"], main_path["op"], card["peaks"],
                           gen)
     op = main_path["op"]
     x = torch.randn(op.n_rows, generator=gen, dtype=F64, device="cuda")
     k1_err = check_stencil(op, x)["max_abs_err"]
     del x
-    phase_profile(main_path["amg"], op)
+    profile_solve(main_path["amg"], op)
     phase_small_input()
     host_setup_s = main_path["out"]["setup_s"]
     # the device path's own memory: drop the host hierarchy first
@@ -770,20 +1032,48 @@ def main() -> int:
     phase_device_setup_parity()
     timing["btake_rows"] = phase_btake_timing(card["peaks"],
                                               device_path["launches"])
+    ij_runs = phase_ij_driver()
+    ij_path = f"ij -n {IJ_GRID} {IJ_GRID} {IJ_GRID} -solver 1"
+    ij_errs = phase_hierarchy_checks(ij_runs["a"]["out"]["amg"], gen,
+                                     ij_path)
+    profile_iteration(ij_runs["a"]["out"]["amg"], ij_runs["a"]["out"]["op"],
+                      ij_path)
+    phase_golden_on_card()
+    ij_a = ij_runs["a"]["row"]
+    timing["dia_matvec"] = phase_dia_timing(
+        ij_runs["a"]["out"]["op"], card["peaks"], gen,
+        ij_a["launches_per_pcg_iter"]["dia_matvec"])
+    del ij_runs["a"]["out"], ij_runs["b"]["out"]
     kernels = []
-    for name, route_src, replaces, err in (
+    for name, route_src, replaces, err, launches, other in (
+            # K1, K2: the out.14 host path's run (K2 also serves the ij
+            # runs); K3: the ij driver's run (a); K4: the device path's
+            # setup, the only path that gathers
             ("stencil_matvec", "hypre_tpu_torch/csrc/stencil_matvec.cu",
-             "hypre_tpu/ops/stencil_pallas.py:123", k1_err),
+             "hypre_tpu/ops/stencil_pallas.py:123", k1_err,
+             main_path["launches"]["stencil_matvec"],
+             {"launches_device_path": device_path["out"]["launches_solves"][
+                 "stencil_matvec"]}),
             ("csr_spmv", "hypre_tpu_torch/csrc/csr_spmv.cu",
-             "hypre_tpu/ops/gstell.py:719", k2_err),
+             "hypre_tpu/ops/gstell.py:719",
+             max(k2_err, ij_errs["csr_spmv"]),
+             main_path["launches"]["csr_spmv"],
+             {"launches_device_path": device_path["out"]["launches_solves"][
+                 "csr_spmv"], "launches_ij_driver_a": ij_a["launches"][
+                 "csr_spmv"]}),
+            ("dia_matvec", "hypre_tpu_torch/csrc/dia_matvec.cu",
+             "hypre_tpu/ops/dia_pallas.py:105",
+             max(timing["dia_matvec"]["max_abs_err"],
+                 ij_errs["dia_matvec"]),
+             ij_a["launches"]["dia_matvec"],
+             {"launches_ij_driver_b": ij_runs["b"]["row"]["launches"][
+                 "dia_matvec"]}),
             ("btake_rows", "hypre_tpu_torch/csrc/btake.cu",
              "hypre_tpu/ops/btake.py:285",
-             timing["btake_rows"]["max_abs_err"])):
+             timing["btake_rows"]["max_abs_err"],
+             device_path["launches"]["btake_rows"],
+             {"launches_device_path": device_path["launches"]["btake_rows"]})):
         t = timing[name]
-        # K1 and K2: the host main path's run; K4: the device path's
-        # setup, the only path that gathers
-        launches = (device_path["launches"][name] if name == "btake_rows"
-                    else main_path["launches"][name])
         row = {
             "name": name, "route": "cuda", "source": route_src,
             "replaces": replaces, "launches": launches,
@@ -792,9 +1082,7 @@ def main() -> int:
             "library_ms": t["library_ms"]}
         if "per_pcg_iter" in t:
             row["launches_per_pcg_iter"] = t["per_pcg_iter"]
-        row["launches_device_path"] = (
-            device_path["launches"][name] if name == "btake_rows"
-            else device_path["out"]["launches_solves"][name])
+        row.update(other)
         kernels.append(row)
     emit({"kernels": kernels})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

@@ -11,11 +11,16 @@ and this module rebuilds them as the port's operators:
   ``base[t, ch, g, sublane] * 128 + locs[t, ch, s, lane]`` for row
   ``(t * CH + ch) * 128 + lane``; zero values and rows past ``n_rows``
   are padding and are dropped;
-* ELL ``cols``/``vals`` (slot-major, ``[width, n_rows]``), DIA
-  ``offsets``/``vals`` (``vals[d, i] = A[i, i + offsets[d]]``) → CsrMatrix;
+* ELL ``cols``/``vals`` (slot-major, ``[width, n_rows]``) → CsrMatrix;
+* DIA ``offsets``/``vals`` (``vals[d, i] = A[i, i + offsets[d]]``) →
+  DiaMatrix, the same arrays;
 * Dense ``vals`` (128-padded) → DenseMatrix of the logical shape;
 * the coarse LU: JAX's ``lu_factor`` pivots are 0-based, torch's
-  ``lu_solve`` takes 1-based LAPACK pivots, so they are shifted by one.
+  ``lu_solve`` takes 1-based LAPACK pivots, so they are shifted by one;
+* exact-GS factors: the dense ``gs_lo``/``gs_up`` as they are, and a
+  ``WavefrontTriSolve`` from its ``perm``, ``inv_perm``, ``dinv_p``,
+  ``cols``, ``vals`` (None for a wavefront with no entries) and
+  ``block_bounds``.
 
 Each operator is given as a dict with a ``kind`` key ("stencil",
 "gstell", "ell", "dia", "dense") and that format's arrays.
@@ -31,9 +36,11 @@ import scipy.sparse as sp
 import torch
 
 from hypre_tpu_torch.core.config import get_config, get_device
+from hypre_tpu_torch.ops.dia import DiaMatrix
 from hypre_tpu_torch.ops.formats import DenseMatrix, SparseOp
 from hypre_tpu_torch.ops.spmv import csr_from_scipy
 from hypre_tpu_torch.ops.stencil import stencil_op
+from hypre_tpu_torch.ops.trisolve import WavefrontTriSolve
 from hypre_tpu_torch.solvers.amg import AmgHierarchy, AmgLevel
 
 
@@ -67,15 +74,6 @@ def scipy_from_ell(cols, vals, n_cols) -> sp.csr_matrix:
                        n_rows, n_cols)
 
 
-def scipy_from_dia(offsets, vals, n_cols) -> sp.csr_matrix:
-    vals = np.asarray(vals, dtype=np.float64)        # [n_diags, n_rows]
-    n_rows = vals.shape[1]
-    rows = np.broadcast_to(np.arange(n_rows), vals.shape)
-    cols = rows + np.asarray(offsets, dtype=np.int64)[:, None]
-    ok = (cols >= 0) & (cols < n_cols)
-    return _coo_to_csr(rows[ok], cols[ok], vals[ok], n_rows, n_cols)
-
-
 def operator_from_numpy(op: dict, dtype=None, device=None) -> SparseOp:
     """One reference operator (a dict of numpy arrays) as a port op."""
     dtype = dtype or get_config().real_dtype
@@ -87,13 +85,16 @@ def operator_from_numpy(op: dict, dtype=None, device=None) -> SparseOp:
         v = np.array(op["vals"])[:op["n_rows"], :op["n_cols"]]
         return DenseMatrix(vals=torch.as_tensor(v, dtype=dtype,
                                                 device=device))
+    if kind == "dia":
+        return DiaMatrix(vals=torch.as_tensor(np.array(op["vals"]),
+                                              dtype=dtype, device=device),
+                         offsets=tuple(int(d) for d in op["offsets"]),
+                         n_cols=int(op["n_cols"]))
     if kind == "gstell":
         A = scipy_from_gstell(op["base"], op["locs"], op["vals"],
                               op["n_rows"], op["n_cols"])
     elif kind == "ell":
         A = scipy_from_ell(op["cols"], op["vals"], op["n_cols"])
-    elif kind == "dia":
-        A = scipy_from_dia(op["offsets"], op["vals"], op["n_cols"])
     else:
         raise ValueError(f"unknown operator kind {kind!r}")
     return csr_from_scipy(A, dtype, device)
@@ -119,14 +120,36 @@ def lu_pivots_from_jax(piv) -> torch.Tensor:
                            dtype=torch.int32)
 
 
+def trisolve_from_numpy(wf: dict, dtype=None, device=None):
+    """A reference WavefrontTriSolve (a dict of np.asarray of its fields)
+    as the port's: the same permutation, wavefront blocks and bounds."""
+    dtype = dtype or get_config().real_dtype
+    device = device if device is not None else get_device()
+
+    def idx(a):
+        return torch.as_tensor(np.array(a, dtype=np.int64), device=device)
+
+    def real(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return WavefrontTriSolve(
+        perm=idx(wf["perm"]), inv_perm=idx(wf["inv_perm"]),
+        dinv_p=real(wf["dinv_p"]),
+        cols=tuple(None if c is None else idx(c) for c in wf["cols"]),
+        vals=tuple(None if v is None else real(v) for v in wf["vals"]),
+        block_bounds=tuple((int(s), int(m)) for s, m in wf["block_bounds"]))
+
+
 def hierarchy_from_numpy(levels, c_lu, c_piv, relax_weight: float = 1.0,
-                         num_sweeps: int = 1, dtype=None,
-                         device=None) -> AmgHierarchy:
+                         num_sweeps: int = 1, relax_type: int = 18,
+                         dtype=None, device=None) -> AmgHierarchy:
     """Build the port's AmgHierarchy from a reference hierarchy.
 
     levels: one dict per level with "A" (an operator dict), "P" and
     "R" (operator dicts, None on the coarsest level) and "dinv" (numpy
-    vector, None on the coarsest level).  c_lu, c_piv: the reference's
+    vector, None on the coarsest level); for exact GS also "gs_lo" and
+    "gs_up" (dense numpy factors) or "gs_wf_lo" and "gs_wf_up"
+    (trisolve dicts), None where absent.  c_lu, c_piv: the reference's
     coarse LU factors and its 0-based pivots."""
     dtype = dtype or get_config().real_dtype
     device = device if device is not None else get_device()
@@ -134,15 +157,22 @@ def hierarchy_from_numpy(levels, c_lu, c_piv, relax_weight: float = 1.0,
     def op(d):
         return None if d is None else operator_from_numpy(d, dtype, device)
 
+    def real(a):
+        return None if a is None else torch.as_tensor(
+            np.array(a), dtype=dtype, device=device)
+
+    def wf(d):
+        return None if d is None else trisolve_from_numpy(d, dtype, device)
+
     out = []
     for lvl in levels:
-        dinv = lvl.get("dinv")
         out.append(AmgLevel(
             A=op(lvl["A"]), P=op(lvl.get("P")), R=op(lvl.get("R")),
-            dinv=(None if dinv is None else torch.as_tensor(
-                np.array(dinv), dtype=dtype, device=device))))
+            dinv=real(lvl.get("dinv")), gs_lo=real(lvl.get("gs_lo")),
+            gs_up=real(lvl.get("gs_up")), gs_wf_lo=wf(lvl.get("gs_wf_lo")),
+            gs_wf_up=wf(lvl.get("gs_wf_up"))))
     return AmgHierarchy(
-        levels=tuple(out),
-        c_lu=torch.as_tensor(np.array(c_lu), dtype=dtype, device=device),
+        levels=tuple(out), c_lu=real(c_lu),
         c_piv=lu_pivots_from_jax(c_piv).to(device),
-        relax_weight=relax_weight, num_sweeps=num_sweeps)
+        relax_weight=relax_weight, num_sweeps=num_sweeps,
+        relax_type=relax_type)

@@ -29,7 +29,8 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(HERE), "_build")
-CUDA_SOURCES = ("stencil_matvec.cu", "csr_spmv.cu", "btake.cu")
+CUDA_SOURCES = ("stencil_matvec.cu", "csr_spmv.cu", "dia_matvec.cu",
+                "btake.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -115,10 +116,13 @@ def load():
         lib.csr_transpose.argtypes = [
             ctypes.c_int64, ctypes.c_int64, _i64p, _i32p, _f64p,
             _i64p, _i32p, _f64p]
+        lib.gs_wavefronts.argtypes = [
+            ctypes.c_int64, ctypes.c_int32, _i64p, _i32p, _i32p]
         for fn in ("rs_first_pass", "strength_mask", "pmis",
                    "direct_interp", "extpi_interp", "truncate_interp",
                    "spgemm", "csr_transpose", "stencil_csr",
-                   "mask_to_csr", "l1_norms", "pmis_measure"):
+                   "mask_to_csr", "l1_norms", "pmis_measure",
+                   "gs_wavefronts"):
             getattr(lib, fn).restype = None
         _lib = lib
         return lib
@@ -403,3 +407,15 @@ def pmis_measure(S, global_ids, seed: int):
     lib.pmis_measure(n, len(indices), _p(indices, _i32p),
                      _p(gids, _i64p), seed, _p(measure, _f64p))
     return measure
+
+
+def gs_wavefronts(A, backward: bool = False):
+    """Wavefront depth per row for a (l1-)GS sweep over CSR A."""
+    lib = load()
+    n = A.shape[0]
+    indptr = np.ascontiguousarray(A.indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(A.indices, dtype=np.int32)
+    depth = np.zeros(n, dtype=np.int32)
+    lib.gs_wavefronts(n, int(backward), _p(indptr, _i64p),
+                      _p(indices, _i32p), _p(depth, _i32p))
+    return depth

@@ -3,14 +3,15 @@
 // Host OpenMP C++, not device code: the AMG setup's irregular graph
 // algorithms over CSR (strength of connection, PMIS and the HMIS
 // first pass, direct and ext+i interpolation, truncation, SpGEMM,
-// transpose, l1 norms, the stencil generator).  This is the port's own
-// copy of the subset of hypre_tpu/csrc/setup_kernels.cpp that the
-// out.14 path calls, kept byte-for-byte in every function body so the
-// two packages build the same hierarchy bit for bit.  The reference
-// semantics are hypre's (src/parcsr_ls/par_strength.c, par_coarsen.c,
-// par_interp.c, par_lr_interp.c); every kernel has a vectorized-numpy
-// twin in hypre_tpu_torch/setup/.  Built with g++ by csrc/build.py and
-// loaded with ctypes.
+// transpose, l1 norms, the stencil generator, the Gauss-Seidel
+// wavefront levels).  This is the port's own copy of the subset of
+// hypre_tpu/csrc/setup_kernels.cpp that the port calls, kept
+// byte-for-byte in every function body so the two packages build the
+// same hierarchy bit for bit.  The reference semantics are hypre's
+// (src/parcsr_ls/par_strength.c, par_coarsen.c, par_interp.c,
+// par_lr_interp.c); every kernel has a numpy twin in
+// hypre_tpu_torch/setup/ (gs_wavefronts: ops/trisolve.py).  Built with
+// g++ by csrc/build.py and loaded with ctypes.
 
 #include <algorithm>
 #include <cmath>
@@ -627,6 +628,38 @@ void mask_to_csr(int64_t n, int32_t pass,
     int64_t w = s_indptr[i];
     for (int64_t p = indptr[i]; p < indptr[i + 1]; ++p)
       if (mask[p]) s_indices[w++] = indices[p];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Gauss-Seidel wavefront levels (the level-scheduling analysis a
+// vendor sparse trisolve performs, e.g. cusparse csrsv2 as used by the
+// reference's device hybrid-GS): depth[i] = longest chain of
+// lower-triangular couplings ending at i.  Rows of equal depth can
+// update concurrently in a forward sweep.  dir=0: forward (j < i);
+// dir=1: backward (j > i, scanned in reverse).
+// ---------------------------------------------------------------------------
+void gs_wavefronts(int64_t n, int32_t dir,
+                   const int64_t* indptr, const int32_t* indices,
+                   int32_t* depth) {
+  if (dir == 0) {
+    for (int64_t i = 0; i < n; ++i) {
+      int32_t d = 0;
+      for (int64_t p = indptr[i]; p < indptr[i + 1]; ++p) {
+        const int32_t j = indices[p];
+        if (j < i && depth[j] > d) d = depth[j];
+      }
+      depth[i] = d + 1;
+    }
+  } else {
+    for (int64_t i = n - 1; i >= 0; --i) {
+      int32_t d = 0;
+      for (int64_t p = indptr[i]; p < indptr[i + 1]; ++p) {
+        const int32_t j = indices[p];
+        if (j > i && depth[j] > d) d = depth[j];
+      }
+      depth[i] = d + 1;
+    }
   }
 }
 

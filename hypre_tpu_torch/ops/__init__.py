@@ -1,3 +1,6 @@
+from hypre_tpu_torch.ops.dia import (  # noqa: F401
+    DiaMatrix, dia_from_scipy, dia_matvec, dia_matvec_plain,
+)
 from hypre_tpu_torch.ops.formats import (  # noqa: F401
     CsrMatrix, DenseMatrix, SparseOp, StencilOp, matvec,
     sparse_op_from_dell, sparse_op_from_scipy,

@@ -5,14 +5,16 @@ phase stores:
 
 * ``StencilOp`` (ops/stencil.py) — level 0 of a generated stencil
   problem, applied analytically by kernel K1;
+* ``DiaMatrix`` (ops/dia.py) — stencil-like operators of at most 32
+  diagonals, applied by kernel K3;
 * ``CsrMatrix`` (ops/spmv.py) — every other stored sparse operator,
   applied by kernel K2;
 * ``DenseMatrix`` — operators of at most 2048 rows and columns, applied
   with one ``torch.mv`` (the reference computes these with ``jnp.dot``
   outside any Pallas kernel, formats.py:124-127).
 
-The reference's ELL, DIA and GST-ELL formats are not carried over: CSR
-takes their place on the card (DIA's kernel is K3 in ROADMAP Queue 2).
+The reference's ELL and GST-ELL formats are not carried over: CSR takes
+their place on the card.
 
 ``sparse_op_from_dell`` packs an operator of the device setup (a
 ``setup/device_amg.DEll`` on the card) straight into these formats with
@@ -26,12 +28,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from hypre_tpu_torch.ops.dia import DiaMatrix, dia_from_scipy, dia_matvec
 from hypre_tpu_torch.ops.spmv import (
     CsrMatrix, csr_from_scipy, csr_spmv, group_size,
 )
 from hypre_tpu_torch.ops.stencil import StencilOp, stencil_matvec
 
 DENSE_MAX = 2048   # dense at this many rows and columns or fewer
+# DIA only while x fits this many bytes in f32: the TPU kernel's VMEM
+# operand limit (formats.py:316), kept so that the port picks the format
+# the reference picks (ROADMAP Queue 3)
+DIA_MAX_X_BYTES = 5 * 1024 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +60,7 @@ class DenseMatrix:
         return (self.n_rows, self.n_cols)
 
 
-SparseOp = StencilOp | CsrMatrix | DenseMatrix
+SparseOp = StencilOp | DiaMatrix | CsrMatrix | DenseMatrix
 
 
 def dense_from_scipy(A, dtype: torch.dtype, device) -> DenseMatrix:
@@ -64,6 +71,8 @@ def dense_from_scipy(A, dtype: torch.dtype, device) -> DenseMatrix:
 def matvec(A: SparseOp, x: torch.Tensor) -> torch.Tensor:
     if isinstance(A, StencilOp):
         return stencil_matvec(A, x)
+    if isinstance(A, DiaMatrix):
+        return dia_matvec(A, x)
     if isinstance(A, CsrMatrix):
         return csr_spmv(A, x)
     if isinstance(A, DenseMatrix):
@@ -72,15 +81,25 @@ def matvec(A: SparseOp, x: torch.Tensor) -> torch.Tensor:
 
 
 def sparse_op_from_scipy(A, dtype: torch.dtype | None = None,
-                         device=None) -> SparseOp:
-    """Dense at 2048 rows and columns or fewer (formats.py:314), CSR
-    otherwise.  dtype and device default to the configured ones."""
+                         device=None, prefer_dia: bool = True) -> SparseOp:
+    """The reference's format choice (formats.py:306-334), step by step:
+    dense at 2048 rows and columns or fewer; then, when prefer_dia and
+    the f32 x fits DIA_MAX_X_BYTES, DIA if the matrix has at most 32
+    offsets and fills at least half of those diagonals; CSR otherwise,
+    in place of the reference's GST-ELL and ELL.  The reference's second
+    DIA try (:330-333) runs only when GST-ELL refuses a matrix, which
+    CSR never does, so it is not carried over.  dtype and device
+    default to the configured ones."""
     from hypre_tpu_torch.core.config import get_config, get_device
 
     dtype = dtype or get_config().real_dtype
     device = device if device is not None else get_device()
     if max(A.shape) <= DENSE_MAX and min(A.shape) > 0:
         return dense_from_scipy(A, dtype, device)
+    if prefer_dia and A.shape[1] * 4 <= DIA_MAX_X_BYTES:
+        D = dia_from_scipy(A, dtype, device, max_diags=32)
+        if D is not None and A.nnz >= 0.5 * len(D.offsets) * A.shape[0]:
+            return D
     return csr_from_scipy(A, dtype, device)
 
 

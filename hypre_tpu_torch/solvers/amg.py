@@ -1,9 +1,10 @@
 """BoomerAMG: host or device setup + V-cycle solve on the card.
 
 Port of hypre_tpu/solvers/amg.py, cut to the branches that hypre's
-out.14 benchmark and the ij driver's solver 1 with interp 3 or 6
-reach (setup driver ref: src/parcsr_ls/par_amg_setup.c:29; cycle ref:
-par_cycle.c:23; solve ref: par_amg_solve.c:22).  Two setups:
+out.14 benchmark and the ij driver's defaults (HMIS or PMIS, interp 3
+or 6, relax 13) reach (setup driver ref: src/parcsr_ls/par_amg_setup.c:
+29; cycle ref: par_cycle.c:23; solve ref: par_amg_solve.c:22).  Two
+setups:
 
 * ``setup`` runs on the host (numpy plus the OpenMP kernels, f64) and
   is the reference's own algorithm, so the hierarchy is the same bit for
@@ -13,11 +14,13 @@ par_cycle.c:23; solve ref: par_amg_solve.c:22).  Two setups:
   ``setup_device``, amg.py:526-666) and packs each level there.
 
 The solve phase runs eagerly on torch tensors: l1/weighted Jacobi
-smoothing, a V-cycle, and a dense LU on the coarsest level.
+(relax 18/0/7) or exact (l1-)Gauss-Seidel (relax 3/4/6/8/13/14: dense
+triangular factors on small levels, the wavefront solve of
+ops/trisolve.py above ``exact_gs_max`` rows), a V-cycle, and a dense LU
+on the coarsest level.
 
-Options of AmgConfig that the slice does not carry raise
-NotImplementedError at setup.  ``prefer_dia`` is accepted and has no
-effect: the port stores no DIA operators (kernel K3 is still to port).
+Options of AmgConfig that the port does not carry yet raise
+NotImplementedError at setup.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from hypre_tpu_torch.ops.formats import (
     sparse_op_from_scipy,
 )
 from hypre_tpu_torch.ops.stencil import stencil_op
+from hypre_tpu_torch.ops.trisolve import WavefrontTriSolve, build_trisolve
 from hypre_tpu_torch.setup.coarsen import C_PT, hmis, pmis
 from hypre_tpu_torch.setup.interp import direct_interp
 from hypre_tpu_torch.setup.interp_ext import extpi_interp
@@ -74,11 +78,11 @@ class AmgConfig:
     simple: int = -1
     add_last_lvl: int = -1
     seed: int = 2747
-    exact_gs_max: int = 8192          # exact-GS relax types (not ported)
+    exact_gs_max: int = 8192          # exact GS: dense factors up to here
     cheby_order: int = 2              # Chebyshev relax 16 (not ported)
     cheby_fraction: float = 0.3
     cheby_eig_iters: int = 20
-    prefer_dia: bool = True           # accepted; no DIA in the port
+    prefer_dia: bool = True           # level A as DIA where it is a stencil
     gsmg: int = 0
     num_samples: int = 5
     gsmg_sweeps: int = 5
@@ -89,7 +93,9 @@ class AmgConfig:
     print_level: int = 0              # >=1: per-level trace to stderr
 
 
-PORTED_RELAX = (18, 0, 7)
+JACOBI_RELAX = (18, 0, 7)             # the device setup's smoothers
+EXACT_GS_RELAX = (3, 4, 6, 8, 13, 14)
+PORTED_RELAX = JACOBI_RELAX + EXACT_GS_RELAX
 DEVICE_RELAX_LATER = (16, 11, 12)     # the reference's device setup has them
 
 
@@ -123,6 +129,10 @@ class AmgLevel:
     P: Optional[SparseOp]       # None on the coarsest level
     R: Optional[SparseOp]       # explicit P^T
     dinv: Optional[torch.Tensor]  # 1 / smoother diagonal (l1 norms)
+    gs_lo: Optional[torch.Tensor] = None  # dense D+L (exact GS, small)
+    gs_up: Optional[torch.Tensor] = None  # dense D+U
+    gs_wf_lo: Optional[WavefrontTriSolve] = None  # exact GS, large
+    gs_wf_up: Optional[WavefrontTriSolve] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +142,7 @@ class AmgHierarchy:
     c_piv: torch.Tensor         # 1-based LAPACK pivots (torch convention)
     relax_weight: float
     num_sweeps: int
+    relax_type: int = 18
 
 
 def iter_host_hierarchy(A: sp.csr_matrix, cfg: AmgConfig):
@@ -182,7 +193,9 @@ def iter_host_hierarchy(A: sp.csr_matrix, cfg: AmgConfig):
 def l1_option_for_relax(relax_type: int) -> int:
     if relax_type == 18:
         return 1
-    return 5  # plain diagonal (Jacobi types 0/7)
+    if relax_type in (13, 14, 8):
+        return 4
+    return 5  # plain diagonal (Jacobi types 0/7, exact GS 3/4/6)
 
 
 class BoomerAMG:
@@ -238,8 +251,9 @@ class BoomerAMG:
             self.level_nnz.append(Ah.nnz)
         # coarsest level: dense LU
         levels.append(AmgLevel(
-            A=sparse_op_from_scipy(Al, dtype, device), P=None, R=None,
-            dinv=None))
+            A=sparse_op_from_scipy(Al, dtype, device,
+                                   prefer_dia=cfg.prefer_dia),
+            P=None, R=None, dinv=None))
         dense = torch.as_tensor(Al.toarray(), dtype=dtype, device=device)
         c_lu, c_piv = torch.linalg.lu_factor(dense)
         self.level_sizes.append(Al.shape[0])
@@ -248,21 +262,44 @@ class BoomerAMG:
 
         self.hierarchy = AmgHierarchy(
             levels=tuple(levels), c_lu=c_lu, c_piv=c_piv,
-            relax_weight=cfg.relax_weight, num_sweeps=cfg.num_sweeps)
+            relax_weight=cfg.relax_weight, num_sweeps=cfg.num_sweeps,
+            relax_type=cfg.relax_type)
         self.grid_complexity = sum(self.level_sizes) / self.level_sizes[0]
         self.operator_complexity = sum(self.level_nnz) / A.nnz
         return self
 
     def _build_dev_level(self, Ah, Ph, Rh, cfm, a_op=None, *, dtype,
                          device) -> AmgLevel:
-        dinv = 1.0 / l1_norms(Ah, l1_option_for_relax(
-            self.config.relax_type))
+        """One level on the device (amg.py:440-522): A in the format the
+        reference picks (P and R never DIA), the smoother's inverse l1
+        diagonal and, for exact GS, its triangular factors."""
+        cfg = self.config
+        dl1 = l1_norms(Ah, l1_option_for_relax(cfg.relax_type))
+        gs = {}
+        if cfg.relax_type in EXACT_GS_RELAX:
+            # exact (l1-)GS (ref: par_relax.c:24, types 3/4/6/8/13/14):
+            # dense triangular factors on small levels, the wavefront
+            # solve above exact_gs_max rows (amg.py:453-475)
+            if Ah.shape[0] <= cfg.exact_gs_max:
+                lo = sp.tril(Ah, -1).toarray()
+                up = sp.triu(Ah, 1).toarray()
+                np.fill_diagonal(lo, dl1)
+                np.fill_diagonal(up, dl1)
+                gs["gs_lo"] = torch.as_tensor(lo, dtype=dtype, device=device)
+                gs["gs_up"] = torch.as_tensor(up, dtype=dtype, device=device)
+            else:
+                gs["gs_wf_lo"] = build_trisolve(Ah, dl1, backward=False,
+                                                dtype=dtype, device=device)
+                gs["gs_wf_up"] = build_trisolve(Ah, dl1, backward=True,
+                                                dtype=dtype, device=device)
         return AmgLevel(
             A=(a_op if a_op is not None
-               else sparse_op_from_scipy(Ah, dtype, device)),
-            P=sparse_op_from_scipy(Ph, dtype, device),
-            R=sparse_op_from_scipy(Rh, dtype, device),
-            dinv=torch.as_tensor(dinv, dtype=dtype, device=device))
+               else sparse_op_from_scipy(Ah, dtype, device,
+                                         prefer_dia=cfg.prefer_dia)),
+            P=sparse_op_from_scipy(Ph, dtype, device, prefer_dia=False),
+            R=sparse_op_from_scipy(Rh, dtype, device, prefer_dia=False),
+            dinv=torch.as_tensor(1.0 / dl1, dtype=dtype, device=device),
+            **gs)
 
     # -- device-resident setup ------------------------------------------
 
@@ -289,7 +326,7 @@ class BoomerAMG:
             raise NotImplementedError(
                 f"relax_type {cfg.relax_type} on the device setup is not in "
                 "the port yet (see ROADMAP.md Queue 1, slice 3)")
-        if cfg.relax_type not in PORTED_RELAX:
+        if cfg.relax_type not in JACOBI_RELAX:
             raise ValueError(
                 f"relax_type {cfg.relax_type} needs host factorization;"
                 " use setup()")
@@ -349,7 +386,8 @@ class BoomerAMG:
 
         self.hierarchy = AmgHierarchy(
             levels=tuple(levels), c_lu=c_lu, c_piv=c_piv,
-            relax_weight=cfg.relax_weight, num_sweeps=cfg.num_sweeps)
+            relax_weight=cfg.relax_weight, num_sweeps=cfg.num_sweeps,
+            relax_type=cfg.relax_type)
         self.grid_complexity = sum(self.level_sizes) / self.level_sizes[0]
         self.operator_complexity = sum(self.level_nnz) / self.level_nnz[0]
         return self
@@ -400,12 +438,38 @@ class BoomerAMG:
         return x, it, rnorm / safe_b
 
 
-def _relax(lvl: AmgLevel, w: float, f: torch.Tensor,
-           u: Optional[torch.Tensor], num_sweeps: int) -> torch.Tensor:
-    """(l1-)Jacobi smoothing, relax 18 / 7 / 0 (ref: par_relax.c:24):
-    u += w * dinv * (f - A u); the first sweep from u = 0 folds to
-    u = w * dinv * f."""
+def _relax(lvl: AmgLevel, relax_type: int, w: float, f: torch.Tensor,
+           u: Optional[torch.Tensor], num_sweeps: int,
+           up: bool = False) -> torch.Tensor:
+    """Smoother dispatch (ref: par_relax.c:24 hypre_BoomerAMGRelax).
+
+    18 / 7 / 0: (l1-)Jacobi, u += w * dinv * (f - A u); the first sweep
+    from u = 0 folds to u = w * dinv * f.
+    3 / 4 / 6 / 8 / 13 / 14: exact (l1-)GS, u += (D + T)^{-1} (f - A u)
+    with T the strict lower (forward) or upper (backward) part: 13 and 3
+    forward going down and backward going up, 14 and 4 the reverse, 6
+    and 8 symmetric (a forward then a backward sweep); the weight is not
+    applied (amg.py:861-885)."""
     A, dinv = lvl.A, lvl.dinv
+    if relax_type in EXACT_GS_RELAX:
+        def gs_sweep(u, back):
+            r = f if u is None else f - matvec(A, u)
+            if lvl.gs_lo is not None:
+                T = lvl.gs_up if back else lvl.gs_lo
+                z = torch.linalg.solve_triangular(
+                    T, r[:, None], upper=back)[:, 0]
+            else:
+                z = (lvl.gs_wf_up if back else lvl.gs_wf_lo).solve(r)
+            return z if u is None else u + z
+
+        for _ in range(num_sweeps):
+            if relax_type in (6, 8):
+                u = gs_sweep(gs_sweep(u, False), True)
+            elif relax_type in (13, 3):
+                u = gs_sweep(u, up)
+            else:
+                u = gs_sweep(u, not up)
+        return u
     for _ in range(num_sweeps):
         r = f if u is None else f - matvec(A, u)
         z = w * dinv * r
@@ -428,9 +492,9 @@ def _cycle_at(h: AmgHierarchy, l: int, f: torch.Tensor) -> torch.Tensor:
     if l == len(levels) - 1:
         return coarse_solve(h, f)
     lvl = levels[l]
-    w, ns = h.relax_weight, h.num_sweeps
-    u = _relax(lvl, w, f, None, ns)
+    rt, w, ns = h.relax_type, h.relax_weight, h.num_sweeps
+    u = _relax(lvl, rt, w, f, None, ns, up=False)
     r = f - matvec(lvl.A, u)
     uc = _cycle_at(h, l + 1, matvec(lvl.R, r))
     u = u + matvec(lvl.P, uc)
-    return _relax(lvl, w, f, u, ns)
+    return _relax(lvl, rt, w, f, u, ns, up=True)

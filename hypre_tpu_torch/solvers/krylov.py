@@ -16,7 +16,9 @@ from typing import Callable, NamedTuple
 import torch
 
 
-class PcgResult(NamedTuple):
+class KrylovResult(NamedTuple):
+    """What pcg, gmres and bicgstab return."""
+
     x: torch.Tensor
     iters: int
     relres: float
@@ -37,7 +39,7 @@ def _preconditioner(M) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 def pcg(A, b, x0=None, M=None, tol: float = 1e-8,
-        max_iter: int = 1000, atol: float = 0.0) -> PcgResult:
+        max_iter: int = 1000, atol: float = 0.0) -> KrylovResult:
     """Preconditioned conjugate gradients (ref: src/krylov/pcg.c:318).
 
     A: a SparseOp (ops/formats.py) or a callable x -> A@x
@@ -76,4 +78,4 @@ def pcg(A, b, x0=None, M=None, tol: float = 1e-8,
         gamma = gamma_new
         rnorm = float(torch.linalg.vector_norm(r))
         it += 1
-    return PcgResult(x=x, iters=it, relres=rnorm / safe_b)
+    return KrylovResult(x=x, iters=it, relres=rnorm / safe_b)

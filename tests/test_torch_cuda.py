@@ -8,7 +8,9 @@ On a machine with an NVIDIA GPU and nvcc run them with
 (the first test builds the kernels).  Tolerance: max |kernel - plain|
 over the largest |A| |x| term, f64 1e-12, f32 1e-5 — the two sum in
 other orders and the kernels contract multiply-adds.  K4 (a gather) and
-the device setup are held to bit-for-bit equality."""
+the device setup are held to bit-for-bit equality.  K3 (DIA) runs on a
+7-pt and a 27-pt operator, a rectangular one whose offsets reach past
+either end, and one of 40 diagonals."""
 import dataclasses
 
 import numpy as np
@@ -20,6 +22,9 @@ from torch_port_helpers import LAPLACE_27PT, LAPLACE_7PT, rel_diff
 from hypre_tpu_torch import Config, set_config
 from hypre_tpu_torch.gen import laplacian
 from hypre_tpu_torch.ops.btake import btake_rows, btake_rows_plain
+from hypre_tpu_torch.ops.dia import (
+    DiaMatrix, dia_from_scipy, dia_matvec, dia_matvec_plain,
+)
 from hypre_tpu_torch.ops.spmv import csr_from_scipy, csr_spmv, csr_spmv_plain
 from hypre_tpu_torch.setup import device_amg as dev
 from hypre_tpu_torch.ops.stencil import (
@@ -76,6 +81,42 @@ def test_csr_kernel_matches_plain(card, group, dtype):
     assert csr_spmv.launches == before + 1
     absM = dataclasses.replace(M, values=M.values.abs())
     _check(y, csr_spmv_plain(M, x), csr_spmv_plain(absM, x.abs()), dtype)
+
+
+def _dia_case(name, dtype, device):
+    """A DIA operator; rect and 40_offsets are built directly, with
+    values on every slot, so that the masks of x's ends are tested
+    (rect holds offsets that fall wholly past either end)."""
+    from hypre_tpu_torch.gen import laplacian_27pt
+
+    if name == "7pt":
+        return dia_from_scipy(laplacian(31, 17, 13), dtype, device)
+    if name == "27pt":
+        return dia_from_scipy(laplacian_27pt(15, 11, 9), dtype, device)
+    rng = np.random.default_rng(7)
+    if name == "rect":
+        offs = [-12000, -300, -1, 0, 5, 2500, 9000]
+        n_rows, n_cols = 10_007, 7_001
+    else:
+        offs = sorted(rng.choice(np.arange(-2000, 2000), 40, replace=False))
+        n_rows = n_cols = 20_011
+    vals = rng.standard_normal((len(offs), n_rows))
+    return DiaMatrix(vals=torch.as_tensor(vals, dtype=dtype, device=device),
+                     offsets=tuple(int(d) for d in offs), n_cols=n_cols)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["7pt", "27pt", "rect", "40_offsets"])
+def test_dia_kernel_matches_plain(card, name, dtype):
+    A = _dia_case(name, dtype, card)
+    x = torch.randn(A.n_cols, dtype=dtype, device=card,
+                    generator=torch.Generator(card).manual_seed(2))
+    before = dia_matvec.launches
+    y = dia_matvec(A, x)
+    torch.cuda.synchronize()
+    assert dia_matvec.launches == before + 1
+    absA = dataclasses.replace(A, vals=A.vals.abs())
+    _check(y, dia_matvec_plain(A, x), dia_matvec_plain(absA, x.abs()), dtype)
 
 
 def test_pcg_on_card_matches_cpu(card):

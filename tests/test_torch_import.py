@@ -32,7 +32,10 @@ def test_import_leaves_out_jax_and_reference():
         "import hypre_tpu_torch, hypre_tpu_torch.convert, "
         "hypre_tpu_torch.core, hypre_tpu_torch.gen, hypre_tpu_torch.ops, "
         "hypre_tpu_torch.setup, hypre_tpu_torch.csrc.build, "
-        "hypre_tpu_torch.solvers.amg, hypre_tpu_torch.solvers.krylov\n"
+        "hypre_tpu_torch.solvers.amg, hypre_tpu_torch.solvers.krylov, "
+        "hypre_tpu_torch.solvers.krylov_more, hypre_tpu_torch.ops.dia, "
+        "hypre_tpu_torch.ops.trisolve, hypre_tpu_torch.drivers.ij, "
+        "hypre_tpu_torch.testing.runtest\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'hypre_tpu' or m.startswith('hypre_tpu.')]\n"
         "assert not bad, bad\n"

@@ -6,7 +6,8 @@ powers of two, f64 and f32.  K2 (CSR SpMV): csr_spmv_plain on a real
 24^3 level-1 operator carried across from its GST-ELL pack, against
 gstell_matvec_reference on that pack.  Tolerances are relative to the
 largest |A| |x| term: f64 1e-13, f32 1e-6 (the two sum in other orders).
-The kernels themselves run only on the card (tests/test_torch_cuda.py,
+K3 (DIA) has its own file, tests/test_torch_dia.py.  The kernels
+themselves run only on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
 import jax.numpy as jnp
 import numpy as np
@@ -122,8 +123,12 @@ def test_ell_and_dia_conversions_recover_the_matrix(level1):
                                             ell.n_cols), level1)
     A = laplacian(9, 8, 7)
     dia = ref_formats.dia_from_scipy(A, np.float64)
-    assert_csr_equal(convert.scipy_from_dia(dia.offsets, np.asarray(dia.vals),
-                                            dia.n_cols), A)
+    port = convert.operator_from_numpy(op_dict(dia))
+    assert isinstance(port, formats.DiaMatrix) and port.offsets == dia.offsets
+    np.testing.assert_array_equal(port.vals.numpy(), np.asarray(dia.vals))
+    x = np.random.default_rng(8).standard_normal(A.shape[1])
+    np.testing.assert_allclose(formats.matvec(port, torch.from_numpy(x)),
+                               A @ x, rtol=1e-13, atol=1e-13)
 
 
 def test_stencil_and_dense_conversions():
@@ -162,7 +167,8 @@ def test_wrappers_take_the_plain_version_on_cpu():
     op = stencil_op((4, 4, 4), LAPLACE_7PT)
     x = torch.ones(64, dtype=torch.float64)
     assert torch.equal(stencil_matvec(op, x), stencil_matvec_plain(op, x))
-    A = formats.sparse_op_from_scipy(laplacian(64, 64, 1))
+    A = formats.sparse_op_from_scipy(laplacian(64, 64, 1),
+                                     prefer_dia=False)
     assert torch.equal(csr_spmv(A, torch.ones(4096, dtype=torch.float64)),
                        csr_spmv_plain(A, torch.ones(4096,
                                                     dtype=torch.float64)))
@@ -176,6 +182,7 @@ def test_wrappers_raise_without_a_kernel():
     with pytest.raises(HypreTpuError):
         stencil_matvec(op, torch.empty(64, dtype=torch.float64,
                                        device="meta"))
-    A = formats.sparse_op_from_scipy(laplacian(64, 64, 1))
+    A = formats.sparse_op_from_scipy(laplacian(64, 64, 1),
+                                     prefer_dia=False)
     with pytest.raises(HypreTpuError):
         csr_spmv(A, torch.empty(4096, dtype=torch.float64, device="meta"))

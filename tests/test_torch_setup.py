@@ -81,7 +81,7 @@ def test_strength_and_l1_norms_match_reference(monkeypatch, native):
 
 def test_unported_options_raise():
     A = port_gen.laplacian(6, 6, 6)
-    for kw in ({"relax_type": 13}, {"coarsen_type": "cljp"},
+    for kw in ({"relax_type": 16}, {"coarsen_type": "cljp"},
                {"interp_type": 0}, {"cycle_type": "W"},
                {"agg_num_levels": 1}, {"additive": 0}):
         with pytest.raises(NotImplementedError):

@@ -3,7 +3,8 @@
 The port imports nothing of hypre_tpu, so a reference object crosses
 over as numpy arrays: ``op_dict`` turns a hypre_tpu solve-format
 operator into the dict that hypre_tpu_torch.convert takes, and
-``hierarchy_dicts`` does so for a whole hypre_tpu AmgHierarchy.  For the
+``hierarchy_dicts`` does so for a whole hypre_tpu AmgHierarchy (its
+exact-GS factors through ``trisolve_dict``).  For the
 device setup, ``dell_to_port`` carries a reference DEll across,
 ``stage_operators`` gives the stage tests' operators,
 ``check_extpi_equal`` holds one ext+i stage against the reference's and
@@ -51,15 +52,32 @@ def op_dict(op) -> dict:
     raise TypeError(name)
 
 
+def trisolve_dict(wf) -> dict | None:
+    """A hypre_tpu WavefrontTriSolve as convert's dict."""
+    if wf is None:
+        return None
+    return {"perm": np.asarray(wf.perm), "inv_perm": np.asarray(wf.inv_perm),
+            "dinv_p": np.asarray(wf.dinv_p),
+            "cols": [None if c is None else np.asarray(c) for c in wf.cols],
+            "vals": [None if v is None else np.asarray(v) for v in wf.vals],
+            "block_bounds": wf.block_bounds}
+
+
 def hierarchy_dicts(h) -> list[dict]:
-    """The levels of a hypre_tpu AmgHierarchy as convert's dicts."""
+    """The levels of a hypre_tpu AmgHierarchy as convert's dicts,
+    exact-GS factors included."""
+    def arr(a):
+        return None if a is None else np.asarray(a)
+
     out = []
     for lvl in h.levels:
         out.append({
             "A": op_dict(lvl.A),
             "P": None if lvl.P is None else op_dict(lvl.P),
             "R": None if lvl.R is None else op_dict(lvl.R),
-            "dinv": None if lvl.dinv is None else np.asarray(lvl.dinv)})
+            "dinv": arr(lvl.dinv), "gs_lo": arr(lvl.gs_lo),
+            "gs_up": arr(lvl.gs_up), "gs_wf_lo": trisolve_dict(lvl.gs_wf_lo),
+            "gs_wf_up": trisolve_dict(lvl.gs_wf_up)})
     return out
 
 
