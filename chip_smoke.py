@@ -20,7 +20,8 @@ Phases, each printing one JSON line:
              40 diagonals; K4 btake_rows bit
              for bit: int32/f32/f64, K = 1 and 3, random and banded index
              sets with -1 holes, sources smaller and larger than the
-             50 MB L2.
+             50 MB L2; bool/int32/f64 at K = 18, S = 30 with idx and X
+             row windows at odd offsets.
 4. main_path — hypre's out.14 problem through the port's entry points:
              laplacian, BoomerAMG(AmgConfig(interp_type=6, relax_type=18))
              .setup(A, fine_stencil=...), one warm-up and three timed
@@ -33,7 +34,8 @@ Phases, each printing one JSON line:
 6. kernel_timing — each kernel on its 256^3 operators: CUDA-event
              median of 20 launches, beside its plain version, one PyTorch
              library call computing the same function, and the bound
-             (bytes moved over the card's memory rate).
+             (bytes moved over the card's memory rate); K2 also per
+             operator, each with its share of the bound.
 7. profile — one more solve under torch.profiler: device time by kernel
              and by kind, and the device's busy share of the wall time.
 8. small_input — the port at 24^3 on the card against the port's CPU
@@ -56,7 +58,7 @@ Phases, each printing one JSON line:
              sets: the level-1 PMIS neighbour read (A1's cols; f64 and
              int32 sources) and one chunk of level 0's P^T (A P) row
              expansion, beside its plain version, index_select and the
-             bound.
+             bound, each case with its share of the bound.
 12. ij_driver — hypre's ij driver through hypre_tpu_torch.drivers.ij.run
              at -n 100 100 100 (10^6 rows, the largest round cube under
              the reference's DIA limit) in f64 on the card: (a) -solver 1
@@ -87,6 +89,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -319,6 +322,25 @@ def phase_device() -> dict:
     return {"name": name, "smi": smi, "peaks": peaks}
 
 
+def ptxas_report(log: str) -> list[str]:
+    """One line a kernel from nvcc's -Xptxas -v log: its name with the
+    mangled template arguments, registers, spill bytes."""
+    out, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d+([a-z_]+_kernel)"
+                      r"(?:I(\w+?)EE)?", ln)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            spill = ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"spill {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append(f"{name}: {m.group(1)} registers, {spill}")
+    return out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     report = build.build_cuda()
@@ -327,13 +349,11 @@ def phase_build() -> None:
     build.load()
     t_host = time.perf_counter() - t0
     native = native_enabled()
-    ptxas = [ln.strip() for src in report.values()
-             for ln in src["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "cuda_s": {s: r["seconds"]
                                        for s, r in report.items()},
           "cuda_total_s": t_cuda, "host_setup_kernels_s": t_host,
-          "native_setup": native, "ptxas": ptxas[:16]})
+          "native_setup": native,
+          "ptxas": {s: ptxas_report(r["log"]) for s, r in report.items()}})
     if not native:
         raise AssertionError("native setup did not run")
 
@@ -375,6 +395,17 @@ def btake_synthetic(gen) -> list:
                             idx, X, -1 if dtype == torch.int32 else 0,
                             f"{kind} n_src={n_src}"))
                         del X
+    # the device setup's expansion shape: K = 18 source rows, S = 30
+    # slots, idx and X as row windows at odd offsets, n odd
+    n_src, S, n, K = 1_000_003, 30, 200_001, 18
+    big = torch.randint(-1, n_src, (S, n + 8), generator=gen, device=dev_,
+                        dtype=torch.int32)
+    for dtype in (torch.bool, torch.int32, torch.float64):
+        Xb = (torch.randn((K + 1, n_src + 5), generator=gen, device=dev_)
+              * 1e4).to(dtype)
+        out.append(check_btake(big[:, 3:3 + n], Xb[1:, 1:1 + n_src],
+                               0, "windows at odd offsets"))
+        del Xb
     return out
 
 
@@ -567,7 +598,7 @@ def phase_timing(amg, op, peaks, gen) -> dict:
                     "group": A.group, "per_cycle": per_cycle, "ms": t_k,
                     "plain_ms": t_p, "library_ms": t_l,
                     "library_max_abs_diff": lib_err, "bound_ms": t_b,
-                    "bound_by": by})
+                    "bound_by": by, "share_of_bound": t_b / t_k})
         del lib_A, crow
     reset_counts()
 
@@ -578,6 +609,7 @@ def phase_timing(amg, op, peaks, gen) -> dict:
           "library_ms": cycle_sum("library_ms"),
           "library": "torch.sparse.mm on a sparse_csr tensor",
           "bound_ms": cycle_sum("bound_ms"),
+          "share_of_bound": cycle_sum("bound_ms") / cycle_sum("ms"),
           "bound_by": ("bytes" if all(o["bound_by"] == "bytes" for o in ops)
                        else "operations"),
           "per_pcg_iter": per_iter["csr_spmv"],
@@ -594,6 +626,8 @@ def _kind(name: str) -> str:
         return "K2 csr_spmv"
     if "dia_matvec_kernel" in name:
         return "K3 dia_matvec"
+    if "btake_kernel" in name:
+        return "K4 btake"
     if "index" in name.lower() or "gather" in name.lower():
         return "gathers (wavefront solve)"
     if "gemv" in name or "gemm" in name or "getrs" in name \
@@ -816,7 +850,8 @@ def btake_timing_case(idx, X, fill, label, peaks) -> dict:
     return {"case": label, "S": idx.shape[0], "n": idx.shape[1],
             "K": X.shape[0], "n_src": X.shape[1], "n_src_named": used,
             "dtype": str(X.dtype), "ms": t_k, "plain_ms": t_p,
-            "library_ms": t_l, "bound_ms": t_b, "bound_by": by, "bytes": n_bytes, "max_abs_err": err}
+            "library_ms": t_l, "bound_ms": t_b, "bound_by": by,
+            "share_of_bound": t_b / t_k, "bytes": n_bytes, "max_abs_err": err}
 
 
 def phase_btake_timing(peaks, setup_launches) -> dict:
@@ -858,6 +893,8 @@ def phase_btake_timing(peaks, setup_launches) -> dict:
            "library_ms": sum(c["library_ms"] for c in cases),
            "library": "Tensor.index_select(1, idx.clamp_min(0).flatten())",
            "bound_ms": sum(c["bound_ms"] for c in cases),
+           "share_of_bound": sum(c["bound_ms"] for c in cases)
+           / sum(c["ms"] for c in cases),
            "bound_by": ("bytes" if all(c["bound_by"] == "bytes"
                                        for c in cases) else "operations"),
            "max_abs_err": max(c["max_abs_err"] for c in cases),

@@ -9,12 +9,27 @@
 // with it: A on the coarse levels, P and R.
 //
 // Bound: memory.  A's indices and values are streamed once (12 bytes a
-// nonzero in f64), x is gathered (banded, so mostly cache hits) and y
-// written once.  Design: a fixed group of G threads per row, as hypre's
-// device SpMV picks by mean row nnz (csr_spmv_device.c:300-306); the
-// group strides over the row so neighbouring threads read neighbouring
-// nonzeros, and a shuffle reduction inside the group gives the row sum.
-// G is a template argument chosen by the caller from the mean row nnz.
+// nonzero in f64), x is gathered (banded, so mostly L2 hits) and y
+// written once.  What holds such a kernel back is the number of loads
+// in flight and the L2: each nonzero costs a load of its column, then a
+// dependent gather of x, and the values and indices, read once, pass
+// through the same 50 MB L2 that x (41 MB on level 1 of out.14) needs.
+//
+// Design: a group of G lanes a row (G a power of two in [2, 32], chosen
+// by the caller from the mean row nnz, ops/spmv.py group_size), the
+// lanes on neighbouring nonzeros so that every load is coalesced.  Each
+// lane first loads U = 4 nonzeros' columns and values (indices p, p+G,
+// p+2G, p+3G of its row) with evict-first loads (__ldcs), then issues
+// their 4 gathers of x (__ldg), then adds the products: a group covers
+// 4 G nonzeros an iteration, about two mean rows, so most rows take one
+// iteration with all their loads in flight together.  A shuffle inside
+// the group sums the row; lane 0 writes y.
+//
+// The kernel this one replaced had the same groups with one dependent
+// load pair a lane at a time and default-policy loads.  Row blocks
+// (CSR-stream: a block streams a run of rows' nonzeros with 16-byte
+// loads into shared memory and reduces per row) were tried first and
+// lost on the operators with long rows, A1 most (PERF.md, Findings).
 //
 // C interface (ctypes): pointers and the stream as void*.  Each entry
 // returns cudaGetLastError() after its launch.
@@ -25,6 +40,7 @@
 namespace {
 
 constexpr int kBlock = 256;
+constexpr int kUnroll = 4;           // nonzeros a lane has in flight
 
 template <typename T, int G>
 __global__ void __launch_bounds__(kBlock)
@@ -44,8 +60,19 @@ csr_spmv_kernel(int64_t n_rows, const int64_t* __restrict__ indptr,
               : (((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1)));
   const int64_t end = indptr[row + 1];
   T sum = T(0);
-  for (int64_t p = indptr[row] + lane; p < end; p += G)
-    sum += vals[p] * __ldg(x + indices[p]);
+  for (int64_t p = indptr[row] + lane; p < end; p += G * kUnroll) {
+    int32_t c[kUnroll];
+    T v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t q = p + u * G;
+      c[u] = q < end ? __ldcs(indices + q) : -1;
+      v[u] = q < end ? __ldcs(vals + q) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (c[u] >= 0) sum += v[u] * __ldg(x + c[u]);
+  }
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1)
     sum += __shfl_down_sync(mask, sum, off, G);
@@ -67,6 +94,8 @@ int launch(int64_t n_rows, int group, const void* indptr,
            const void* indices, const void* vals, const void* x, void* y,
            void* stream) {
   if (n_rows <= 0) return (int)cudaGetLastError();
+  if ((n_rows * group + kBlock - 1) / kBlock > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (group) {
     case 2: launch_g<T, 2>(n_rows, indptr, indices, vals, x, y, s); break;

@@ -87,9 +87,6 @@ def btake_rows(idx: torch.Tensor, X: torch.Tensor, fill=0) -> torch.Tensor:
             or (X.shape[1] > 1 and X.stride(1) != 1):
         raise HypreTpuError("btake_rows: idx and X need unit stride along "
                             "their last dimension")
-    if idx.shape[0] > 65535 or X.shape[0] > 65535:
-        raise HypreTpuError(f"btake_rows: {idx.shape[0]} index rows and "
-                            f"{X.shape[0]} sources; at most 65535 each")
     K = X.shape[0]
     S, n = idx.shape
     Y = torch.empty((K, S, n), dtype=X.dtype, device=X.device)

@@ -7,7 +7,8 @@ the port keeps CSR as hypre's own device SpMV does
 (src/seq_mv/csr_spmv_device.c:381) and serves A on levels 1-4 and every
 P and R that is not dense with it.  Kernel K2 in ``csrc/csr_spmv.cu``
 gives each row a fixed group of threads sized by the mean row nnz, as
-hypre does (csr_spmv_device.c:300-306).
+hypre does (csr_spmv_device.c:300-306), each thread with four nonzeros
+in flight.
 
 ``csr_spmv`` launches the kernel for a CUDA tensor and runs the plain
 version ``csr_spmv_plain`` for a CPU tensor; there is no fallback
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -26,11 +28,12 @@ from hypre_tpu_torch.core.errors import HypreTpuError
 
 
 def group_size(n_rows: int, nnz: int) -> int:
-    """Threads per row for K2: the power of two in [2, 32] nearest
-    below the mean row nnz (hypre's row-group choice)."""
-    mean = nnz / max(n_rows, 1)
+    """Threads per row for K2: the power of two in [2, 32] nearest to
+    half the mean row nnz (on a log scale), so that a group's pass of
+    four nonzeros a thread covers about two mean rows."""
+    half = nnz / max(n_rows, 1) / 2
     g = 2
-    while g < 32 and 2 * g <= mean:
+    while g < 32 and half >= g * math.sqrt(2):
         g *= 2
     return g
 
@@ -121,6 +124,8 @@ def csr_spmv(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
             f"({A.n_cols},), got {x.dtype} {tuple(x.shape)}")
     fn = _kernel(A.dtype)
     y = torch.empty(A.n_rows, dtype=A.dtype, device=x.device)
+    if A.n_rows == 0:
+        return y
     err = fn(A.n_rows, A.group, A.indptr.data_ptr(), A.indices.data_ptr(),
              A.values.data_ptr(), x.data_ptr(), y.data_ptr(),
              torch.cuda.current_stream(x.device).cuda_stream)

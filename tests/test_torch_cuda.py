@@ -17,7 +17,9 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
-from torch_port_helpers import LAPLACE_27PT, LAPLACE_7PT, rel_diff
+from torch_port_helpers import (
+    EDGE_CSR, LAPLACE_27PT, LAPLACE_7PT, edge_csr, rel_diff,
+)
 
 from hypre_tpu_torch import Config, set_config
 from hypre_tpu_torch.gen import laplacian
@@ -68,6 +70,16 @@ def test_stencil_kernel_matches_plain(card, grid, stencil, dtype):
            stencil_matvec_plain(absop, x.abs()), dtype)
 
 
+def _check_csr(M, x, dtype):
+    before = csr_spmv.launches
+    y = csr_spmv(M, x)
+    torch.cuda.synchronize()
+    assert csr_spmv.launches == before + 1
+    assert y.shape == (M.n_rows,)
+    absM = dataclasses.replace(M, values=M.values.abs())
+    _check(y, csr_spmv_plain(M, x), csr_spmv_plain(absM, x.abs()), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("group", [2, 4, 8, 16, 32])
 def test_csr_kernel_matches_plain(card, group, dtype):
@@ -75,12 +87,27 @@ def test_csr_kernel_matches_plain(card, group, dtype):
     A = sp.random(5003, 4001, density=0.01, random_state=rng, format="csr")
     M = dataclasses.replace(csr_from_scipy(A, dtype, card), group=group)
     x = torch.as_tensor(rng.standard_normal(4001), dtype=dtype, device=card)
-    before = csr_spmv.launches
-    y = csr_spmv(M, x)
-    torch.cuda.synchronize()
-    assert csr_spmv.launches == before + 1
-    absM = dataclasses.replace(M, values=M.values.abs())
-    _check(y, csr_spmv_plain(M, x), csr_spmv_plain(absM, x.abs()), dtype)
+    _check_csr(M, x, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("group", [2, 32, None])
+@pytest.mark.parametrize("name", EDGE_CSR)
+def test_csr_kernel_on_edge_rows(card, name, group, dtype):
+    """Empty rows, a row of 100,003 nonzeros among short rows, rows of
+    thousands of nonzeros beside one-entry rows, one row, no rows, rows
+    that are all empty; at the fewest and most threads a row and at the
+    operator's own group (None)."""
+    A = edge_csr(name, seed=5)
+    M = csr_from_scipy(A, dtype, card)
+    if group is not None:
+        M = dataclasses.replace(M, group=group)
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal(A.shape[1]),
+                        dtype=dtype, device=card)
+    if M.n_rows:
+        _check_csr(M, x, dtype)
+    else:
+        assert csr_spmv(M, x).shape == (0,)
 
 
 def _dia_case(name, dtype, device):
@@ -148,6 +175,35 @@ def test_btake_kernel_matches_plain(card, dtype, K):
     assert btake_rows.launches == before + 1
     assert torch.equal(Y, btake_rows_plain(
         idx, X, fill=-1 if dtype == torch.int32 else 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32, torch.float32,
+                                   torch.float64, torch.int64])
+@pytest.mark.parametrize("K,S,n,c0", [(64, 3, 1001, 1), (5, 40, 4099, 3),
+                                      (2, 17, 17, 7), (1, 1, 1, 0),
+                                      (33, 7, 12_345, 13)])
+def test_btake_kernel_on_windows(card, dtype, K, S, n, c0):
+    """idx and X as row windows of larger arrays starting at odd
+    offsets, n not a multiple of the vector width, K up to 64, S up to
+    40, banded indices with -1 holes: bit for bit the plain version."""
+    g = torch.Generator(card).manual_seed(K * 1000 + S)
+    n_src = 3 * n + 101
+    big_idx = torch.randint(-1, n_src, (S, n + c0 + 5), generator=g,
+                            device=card, dtype=torch.int32)
+    band = (torch.arange(n + c0 + 5, device=card) * 3)[None] + torch.randint(
+        -50, 51, (S, n + c0 + 5), generator=g, device=card)
+    big_idx[:, ::2] = band.clamp(-1, n_src - 1).to(torch.int32)[:, ::2]
+    idx = big_idx[:, c0:c0 + n]
+    big_X = torch.randint(-1000, 1000, (K + 1, n_src + 2 * c0 + 3),
+                          generator=g, device=card).to(dtype)
+    X = big_X[1:, c0 + 1:c0 + 1 + n_src]
+    fill = True if dtype == torch.bool else 7
+    before = btake_rows.launches
+    Y = btake_rows(idx, X, fill)
+    torch.cuda.synchronize()
+    assert btake_rows.launches == before + 1
+    assert Y.shape == (K, S, n) and Y.is_contiguous()
+    assert torch.equal(Y, btake_rows_plain(idx, X, fill))
 
 
 def test_setup_device_on_card_matches_cpu(card):

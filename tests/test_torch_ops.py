@@ -159,7 +159,7 @@ def test_sparse_op_dispatch_and_matvec(level1):
 def test_group_size_follows_mean_row_nnz():
     assert [group_size(100, 100 * k) for k in (1, 3, 4, 7, 8, 20, 40, 64,
                                                 500)] == \
-        [2, 2, 4, 4, 8, 16, 32, 32, 32]
+        [2, 2, 2, 4, 4, 8, 16, 32, 32]
 
 
 def test_wrappers_take_the_plain_version_on_cpu():

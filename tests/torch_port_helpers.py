@@ -9,7 +9,8 @@ device setup, ``dell_to_port`` carries a reference DEll across,
 ``stage_operators`` gives the stage tests' operators,
 ``check_extpi_equal`` holds one ext+i stage against the reference's and
 ``ref_device_hierarchy`` chains the reference's stage functions into a
-whole hierarchy.  Reference modules are imported inside the functions:
+whole hierarchy.  ``edge_csr`` builds the row-length patterns that K2's
+row blocks must handle.  Reference modules are imported inside the functions:
 this module is imported by every port test.
 """
 from __future__ import annotations
@@ -117,6 +118,44 @@ def rand_csr(n, m, density, seed, spd=False):
         A = (-(A + A.T) + sp.eye(n) * 2.0 * n * density * 2).tocsr()
     A.sort_indices()
     return A
+
+
+EDGE_CSR = ("empty_rows", "long_row", "long_next_to_short", "one_row",
+            "no_rows", "all_empty")
+
+
+def edge_csr(name: str, seed: int = 0, long_len: int = 100_003):
+    """A scipy CSR matrix with one of K2's edge patterns of row lengths:
+    runs of empty rows among short ones; one row of ``long_len``
+    nonzeros among short rows; rows of 1 to 3 budgets' length beside
+    1-entry rows; a single row; no rows; rows that are all empty."""
+    rng = np.random.default_rng(seed)
+    n_cols = max(long_len, 8000) + 17
+    if name == "empty_rows":
+        lens = rng.integers(0, 9, 3001) * (rng.random(3001) < 0.6)
+    elif name == "long_row":
+        lens = rng.integers(1, 6, 2001)
+        lens[977] = long_len
+    elif name == "long_next_to_short":
+        lens = np.ones(1200, dtype=np.int64)
+        lens[::97] = rng.integers(2049, 3 * 2048 + 5, len(lens[::97]))
+        lens[5::31] = rng.integers(900, 1100, len(lens[5::31]))
+    elif name == "one_row":
+        lens = np.array([4099])
+    elif name == "no_rows":
+        lens = np.zeros(0, dtype=np.int64)
+    elif name == "all_empty":
+        lens = np.zeros(777, dtype=np.int64)
+    else:
+        raise ValueError(name)
+    rows = [np.sort(rng.choice(n_cols, int(k), replace=False)) if k > 64
+            else np.unique(rng.integers(0, n_cols, int(k))) for k in lens]
+    lens = np.array([len(r) for r in rows], dtype=np.int64)
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    indices = np.concatenate(rows or [np.zeros(0, dtype=np.int64)]).astype(
+        np.int32)
+    data = rng.standard_normal(len(indices))
+    return sp.csr_matrix((data, indices, indptr), shape=(len(lens), n_cols))
 
 
 STAGE_STENCILS = ("lap7", "lap27")
