@@ -13,11 +13,13 @@ Phases, each printing one JSON line:
              unless native setup is on.
 3. kernel_checks (synthetic) — K1 stencil_matvec, K2 csr_spmv and K3
              dia_matvec against their plain PyTorch versions on the card,
-             f32 and f64: K1 on 7-pt and 27-pt stencils over odd grids and
-             256^3, K2 on random CSR at every thread-group size, K3 on 7-pt
-             and 27-pt operators over odd grids, a 2D 9-pt operator, a
-             rectangular operator with offsets past either end and one of
-             40 diagonals; K4 btake_rows bit
+             f32 and f64: K1 on 7-pt, 27-pt and sparse-armed stencils (the
+             tile instance) and a reach-2 13-pt star (the row instance)
+             over odd grids, (2, 3, 1), (33, 9, 70) and 256^3; K2 on random
+             CSR at every thread-group size; K3 on 7-pt and 27-pt
+             operators with odd, 2 mod 4 and 0 mod 4 row counts, a 2D 9-pt
+             operator, rectangular operators with offsets past either end,
+             40 diagonals and 41 (the wide instance); K4 btake_rows bit
              for bit: int32/f32/f64, K = 1 and 3, random and banded index
              sets with -1 holes, sources smaller and larger than the
              50 MB L2; bool/int32/f64 at K = 18, S = 30 with idx and X
@@ -31,11 +33,16 @@ Phases, each printing one JSON line:
              reference's and the true relative residual is <= 1e-8.
 5. kernel_checks (hierarchy) — K2 on the hierarchy's own operators
              (every CSR A, P and R), f32 and f64.
-6. kernel_timing — each kernel on its 256^3 operators: CUDA-event
-             median of 20 launches, beside its plain version, one PyTorch
-             library call computing the same function, and the bound
-             (bytes moved over the card's memory rate); K2 also per
-             operator, each with its share of the bound.
+6. kernel_timing — each kernel on its 256^3 operators, two times:
+             `ms`, the CUDA-event median of 20 calls, each with its Python
+             wrapper (comparable with earlier runs), and `kernel_ms`, the
+             kernel's own device time (torch.profiler, median of 20
+             back-to-back launches); beside them its plain version, one
+             PyTorch library call computing the same function, and the
+             bound (bytes moved over the card's memory rate), the share
+             of the bound taken from `kernel_ms`.  K1 on the 7-pt f64
+             main-path operator, 27-pt f64 and 7-pt f32, and its wrapper's
+             host cost a call; K2 per operator.
 7. profile — one more solve under torch.profiler: device time by kernel
              and by kind, and the device's busy share of the wall time.
 8. small_input — the port at 24^3 on the card against the port's CPU
@@ -57,8 +64,8 @@ Phases, each printing one JSON line:
 11. kernel_timing (K4) — btake_rows on the 256^3 device path's own index
              sets: the level-1 PMIS neighbour read (A1's cols; f64 and
              int32 sources) and one chunk of level 0's P^T (A P) row
-             expansion, beside its plain version, index_select and the
-             bound, each case with its share of the bound.
+             expansion, `ms` and `kernel_ms` beside its plain version,
+             index_select and the bound, each case with its share.
 12. ij_driver — hypre's ij driver through hypre_tpu_torch.drivers.ij.run
              at -n 100 100 100 (10^6 rows, the largest round cube under
              the reference's DIA limit) in f64 on the card: (a) -solver 1
@@ -77,9 +84,10 @@ Phases, each printing one JSON line:
              port runs, without -exec_host, on the card, against
              solvers.saved by runtest's rule (equal iterations, residual
              no worse than rtol 1e-3).
-14. kernel_timing (K3) — dia_matvec on the 100^3 operator of (a), f64
-             and f32, beside its plain version, torch.sparse.mm and the
-             bound.
+14. kernel_timing (K3) — dia_matvec on levels 0 and 1 of (a) (both
+             DIA), f64 and f32, `ms` and `kernel_ms` beside its plain
+             version, torch.sparse.mm and the bound; its wrapper's host
+             cost a call (1,000 calls on a 16^3 operator).
 
 Then the kernels line, nvidia-smi's line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises: nothing is
@@ -126,6 +134,13 @@ LAPLACE_7PT = [((0, 0, 0), 6.0), ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0),
 LAPLACE_27PT = [((dx, dy, dz), 26.0 if dx == dy == dz == 0 else -1.0)
                 for dz in (-1, 0, 1) for dy in (-1, 0, 1)
                 for dx in (-1, 0, 1)]
+# reach 2 (K1's row instance): a 13-pt star
+STAR_13PT = [((0, 0, 0), 12.0)] + [
+    (tuple(s * r if a == ax else 0 for a in range(3)), -1.0 / r)
+    for ax in range(3) for r in (1, 2) for s in (-1, 1)]
+# reach 1 with arms missing, in no canonical order (K1's tile instance)
+SPARSE_ARMS = [((0, 0, 1), -0.5), ((0, 0, 0), 4.0), ((-1, 1, -1), -0.25),
+               ((1, 0, 0), -1.0), ((0, -1, 0), -1.5)]
 GRID = 256        # out.14: -n 256 256 256 (BASELINE.md:20), not cut
 # BENCH_r05.json:19-31, the reference's host setup at 256^3
 REF_LEVELS = [16777216, 5156632, 684520, 71646, 8141, 969, 183, 27, 5]
@@ -203,6 +218,48 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(fn, match: str, reps: int = 20, lead: int = 5,
+              sessions: int = 5) -> float:
+    """Median device time of one launch of the kernel whose name holds
+    `match`, over `reps` back-to-back calls of `fn` under torch.profiler:
+    CUPTI's record of each kernel's own start and end, so no host time
+    (wrapper, launch) is counted, unlike time_ms.  The tracer can drop
+    records (seen on the H100: 18 of 20 kernels, 11 of 25 copies
+    traced), so each session makes `lead` + `reps` calls and sessions
+    repeat, their records pooled, until `reps` are in hand."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    durs = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead + reps):
+                fn()
+            torch.cuda.synchronize()
+        durs += [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and match in e.name]
+        if len(durs) >= reps:
+            return statistics.median(durs[-reps:]) / 1e3
+    raise AssertionError(f"kernel_ms: {len(durs)} launches of {match!r} "
+                         f"traced in {sessions} sessions of {lead + reps}")
+
+
+def wrapper_us(fn, calls: int = 1000) -> float:
+    """Host time a call: a host clock around `calls` calls ending in one
+    synchronize.  On an operator whose kernel takes a few µs the host
+    is the slower side, so this is the wrapper's cost a call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
 def reset_counts() -> None:
     stencil_matvec.launches = 0
     csr_spmv.launches = 0
@@ -234,6 +291,7 @@ def check_stencil(op, x) -> dict:
         raise AssertionError(f"stencil_matvec {op.grid} {op.dtype}: "
                              f"rel err {rel:.3e} > {TOL[op.dtype]:g}")
     return {"grid": list(op.grid), "entries": len(op.entries),
+            "reach": op.reach, "instance": op.launch_args.instance,
             "dtype": str(op.dtype), "max_abs_err": err, "rel_err": rel}
 
 
@@ -263,35 +321,47 @@ def check_dia(A: DiaMatrix, x, label: str) -> dict:
         raise AssertionError(f"dia_matvec {label} {A.dtype}: rel err "
                              f"{rel:.3e} > {TOL[A.dtype]:g}")
     return {"op": label, "shape": list(A.shape), "n_diags": len(A.offsets),
-            "dtype": str(A.dtype), "max_abs_err": err, "rel_err": rel}
+            "instance": A.launch_args.instance, "dtype": str(A.dtype),
+            "max_abs_err": err, "rel_err": rel}
 
 
 def dia_synthetic(gen, dtype) -> list:
-    """K3 on stencil operators over odd grids, a 2D 9-pt operator, and two
-    built with values on every slot (so the masks at x's ends are read):
-    a rectangular one whose offsets fall wholly past either end, and one
-    of 40 diagonals (dia_from_scipy's most)."""
+    """K3 on stencil operators over grids whose row counts are odd, 2
+    mod 4 and 0 mod 4 (K3 takes 2 rows a thread in f64, 4 in f32), a 2D
+    9-pt operator, and five built with values on every slot (so the
+    masks at x's ends are read): two rectangular ones whose offsets fall
+    wholly past either end, two of 40 diagonals (dia_from_scipy's most,
+    K3's by-value limit) and one of 41 (the wide instance)."""
     dev_ = torch.device("cuda")
     rng = np.random.default_rng(11)
     ops = [(f"7pt {g}", dia_from_scipy(laplacian(*g), dtype, dev_))
-           for g in ((13, 9, 7), (101, 37, 29))]
+           for g in ((13, 9, 7), (101, 37, 29), (101, 37, 30),
+                     (100, 50, 20))]
     ops += [(f"27pt {g}", dia_from_scipy(laplacian_27pt(*g), dtype, dev_))
-            for g in ((13, 9, 7), (65, 33, 17))]
+            for g in ((13, 9, 7), (65, 33, 17), (64, 32, 16))]
     ops.append(("9pt 2D (301, 207)",
                 dia_from_scipy(laplacian_9pt(301, 207), dtype, dev_)))
+    rect = (-1_100_000, -400_000, -1, 0, 7, 250_000, 800_000)
+    off40 = tuple(sorted(int(d) for d in rng.choice(
+        np.arange(-20_000, 20_000), 40, replace=False)))
+    off41 = tuple(sorted(int(d) for d in rng.choice(
+        np.arange(-20_000, 20_000), 41, replace=False)))
     for label, offs, n_rows, n_cols in (
-            ("rect", (-1_100_000, -400_000, -1, 0, 7, 250_000, 800_000),
-             1_000_003, 700_001),
-            ("40 offsets", tuple(sorted(int(d) for d in rng.choice(
-                np.arange(-20_000, 20_000), 40, replace=False))),
-             2_000_003, 2_000_003)):
+            ("rect", rect, 1_000_003, 700_001),
+            ("rect", rect, 1_000_004, 700_001),
+            ("40 offsets", off40, 2_000_003, 2_000_003),
+            ("40 offsets", off40, 2_000_004, 2_000_004),
+            ("41 offsets", off41, 2_000_003, 2_000_003)):
         vals = torch.randn((len(offs), n_rows), generator=gen, device=dev_,
                            dtype=dtype)
-        ops.append((label, DiaMatrix(vals=vals, offsets=offs, n_cols=n_cols)))
+        ops.append((f"{label} ({n_rows} rows)",
+                    DiaMatrix(vals=vals, offsets=offs, n_cols=n_cols)))
     out = []
     for label, A in ops:
         x = torch.randn(A.n_cols, generator=gen, dtype=dtype, device=dev_)
         out.append(check_dia(A, x, label))
+    if {r["instance"] for r in out} != {"param", "wide"}:
+        raise AssertionError("K3's synthetic cases missed an instance")
     return out
 
 
@@ -413,12 +483,17 @@ def phase_synthetic_checks(gen) -> None:
     dev = torch.device("cuda")
     results = []
     for dtype in (torch.float64, torch.float32):
-        for grid in ((13, 9, 7), (31, 17, 5), (1, 1, 33), (256, 256, 256)):
-            for ents in (LAPLACE_7PT, LAPLACE_27PT):
+        for grid in ((13, 9, 7), (31, 17, 5), (1, 1, 33), (2, 3, 1),
+                     (33, 9, 70), (256, 256, 256)):
+            for ents in (LAPLACE_7PT, LAPLACE_27PT, SPARSE_ARMS, STAR_13PT):
                 op = stencil_op(grid, ents, dtype=dtype)
                 x = torch.randn(op.n_rows, generator=gen, dtype=dtype,
                                 device=dev)
                 results.append(check_stencil(op, x))
+                if results[-1]["instance"] != ("row" if ents is STAR_13PT
+                                               else "tile"):
+                    raise AssertionError(f"K1 {grid}: instance "
+                                         f"{results[-1]['instance']}")
         rng = np.random.default_rng(7)
         A = random_csr(100_003, 90_001, 70, 600, rng)
         base = csr_from_scipy(A, dtype, dev)
@@ -552,16 +627,13 @@ def launches_per_iter(precondition, op) -> dict:
     return out
 
 
-def phase_timing(amg, op, peaks, gen) -> dict:
-    per_iter = launches_per_iter(amg.precondition, op)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    n = op.n_rows
-    x = torch.randn(n, generator=gen, dtype=F64, device="cuda")
-    # K1 at the main path's shape
-    k1_ms = time_ms(lambda: stencil_matvec(op, x))
-    k1_plain = time_ms(lambda: stencil_matvec_plain(op, x))
-    w = torch.zeros((1, 1, 3, 3, 3), dtype=F64, device="cuda")
+def k1_timing(op, x, peaks) -> dict:
+    """K1 on `op` (reach 1): both times, its plain version, conv3d and
+    the bound (x read and y written once)."""
+    k_ms = time_ms(lambda: stencil_matvec(op, x))
+    k_kms = kernel_ms(lambda: stencil_matvec(op, x), "stencil_matvec_")
+    k_plain = time_ms(lambda: stencil_matvec_plain(op, x))
+    w = torch.zeros((1, 1, 3, 3, 3), dtype=op.dtype, device="cuda")
     for (dx, dy, dz), v in op.entries:
         w[0, 0, dz + 1, dy + 1, dx + 1] = v
     nx, ny, nz = op.grid
@@ -569,14 +641,42 @@ def phase_timing(amg, op, peaks, gen) -> dict:
     conv = torch.nn.functional.conv3d
     y_conv = conv(x5, w, padding=1).reshape(-1)
     conv_err = float((y_conv - stencil_matvec(op, x)).abs().max())
-    k1_lib = time_ms(lambda: conv(x5, w, padding=1))
-    k1_bound, k1_by = bound_ms(peaks, 2 * n * 8, 2 * len(op.entries) * n,
-                               F64)
+    k_lib = time_ms(lambda: conv(x5, w, padding=1))
+    # a copy of x into y moves the bytes the bound counts: the practical
+    # floor of a kernel that reads x and writes y
+    y = torch.empty_like(x)
+    copy_kms = kernel_ms(lambda: y.copy_(x), "Memcpy DtoD")
+    n = op.n_rows
+    k_bound, k_by = bound_ms(peaks, 2 * n * x.element_size(),
+                             2 * len(op.entries) * n, op.dtype)
+    return {"grid": list(op.grid), "entries": len(op.entries),
+            "dtype": str(op.dtype), "instance": op.launch_args.instance,
+            "ms": k_ms, "kernel_ms": k_kms, "plain_ms": k_plain,
+            "library_ms": k_lib,
+            "library": "torch.nn.functional.conv3d (3x3x3, zero padding)",
+            "library_max_abs_diff": conv_err, "bound_ms": k_bound,
+            "bound_by": k_by, "copy_kernel_ms": copy_kms,
+            "share_of_bound": k_bound / k_kms,
+            "share_of_bound_with_wrapper": k_bound / k_ms}
+
+
+def phase_timing(amg, op, peaks, gen) -> dict:
+    per_iter = launches_per_iter(amg.precondition, op)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = op.n_rows
+    x = torch.randn(n, generator=gen, dtype=F64, device="cuda")
+    # K1 at the main path's shape, then 27-pt f64 and 7-pt f32 beside it
+    k1 = k1_timing(op, x, peaks)
+    k1["per_pcg_iter"] = per_iter["stencil_matvec"]
+    k1_rows = [k1]
+    for ents, dtype in ((LAPLACE_27PT, F64), (LAPLACE_7PT, torch.float32)):
+        k1_rows.append(k1_timing(stencil_op(op.grid, ents, dtype=dtype),
+                                 x.to(dtype), peaks))
+    small = stencil_op((16, 16, 16), LAPLACE_7PT, dtype=F64)
+    xs = torch.randn(small.n_rows, generator=gen, dtype=F64, device="cuda")
+    k1["wrapper_us"] = wrapper_us(lambda: stencil_matvec(small, xs))
     reset_counts()
-    k1 = {"ms": k1_ms, "plain_ms": k1_plain, "library_ms": k1_lib,
-          "library": "torch.nn.functional.conv3d (3x3x3, zero padding)",
-          "library_max_abs_diff": conv_err, "bound_ms": k1_bound,
-          "bound_by": k1_by, "per_pcg_iter": per_iter["stencil_matvec"]}
     # K2 on every CSR operator of one V-cycle: A twice, P and R once
     ops = []
     for label, A in hierarchy_ops(amg):
@@ -589,6 +689,7 @@ def phase_timing(amg, op, peaks, gen) -> dict:
         lib_err = float((torch.sparse.mm(lib_A, xa2)[:, 0]
                          - csr_spmv(A, xa)).abs().max())
         t_k = time_ms(lambda: csr_spmv(A, xa))
+        t_kk = kernel_ms(lambda: csr_spmv(A, xa), "csr_spmv_kernel")
         t_p = time_ms(lambda: csr_spmv_plain(A, xa))
         t_l = time_ms(lambda: torch.sparse.mm(lib_A, xa2))
         n_bytes = ((A.n_rows + 1) * 8 + A.nnz * (4 + 8)
@@ -596,35 +697,40 @@ def phase_timing(amg, op, peaks, gen) -> dict:
         t_b, by = bound_ms(peaks, n_bytes, 2 * A.nnz, F64)
         ops.append({"op": label, "shape": list(A.shape), "nnz": A.nnz,
                     "group": A.group, "per_cycle": per_cycle, "ms": t_k,
-                    "plain_ms": t_p, "library_ms": t_l,
+                    "kernel_ms": t_kk, "plain_ms": t_p, "library_ms": t_l,
                     "library_max_abs_diff": lib_err, "bound_ms": t_b,
-                    "bound_by": by, "share_of_bound": t_b / t_k})
+                    "bound_by": by, "share_of_bound": t_b / t_kk,
+                    "share_of_bound_with_wrapper": t_b / t_k})
         del lib_A, crow
     reset_counts()
 
     def cycle_sum(key):
         return sum(o[key] * o["per_cycle"] for o in ops)
 
-    k2 = {"ms": cycle_sum("ms"), "plain_ms": cycle_sum("plain_ms"),
+    k2 = {"ms": cycle_sum("ms"), "kernel_ms": cycle_sum("kernel_ms"),
+          "plain_ms": cycle_sum("plain_ms"),
           "library_ms": cycle_sum("library_ms"),
           "library": "torch.sparse.mm on a sparse_csr tensor",
           "bound_ms": cycle_sum("bound_ms"),
-          "share_of_bound": cycle_sum("bound_ms") / cycle_sum("ms"),
+          "share_of_bound": cycle_sum("bound_ms") / cycle_sum("kernel_ms"),
+          "share_of_bound_with_wrapper": cycle_sum("bound_ms")
+          / cycle_sum("ms"),
           "bound_by": ("bytes" if all(o["bound_by"] == "bytes" for o in ops)
                        else "operations"),
           "per_pcg_iter": per_iter["csr_spmv"],
           "note": "sums over the CSR launches of one V-cycle"}
     emit({"phase": "kernel_timing", "dtype": "float64",
-          "stencil_matvec": k1, "csr_spmv": k2, "csr_spmv_ops": ops})
+          "stencil_matvec": k1, "stencil_matvec_rows": k1_rows,
+          "csr_spmv": k2, "csr_spmv_ops": ops})
     return {"stencil_matvec": k1, "csr_spmv": k2}
 
 
 def _kind(name: str) -> str:
-    if "stencil_matvec_kernel" in name:
+    if "stencil_matvec_" in name:
         return "K1 stencil_matvec"
     if "csr_spmv_kernel" in name:
         return "K2 csr_spmv"
-    if "dia_matvec_kernel" in name:
+    if "dia_matvec_" in name:
         return "K3 dia_matvec"
     if "btake_kernel" in name:
         return "K4 btake"
@@ -835,6 +941,7 @@ def phase_device_setup_parity() -> None:
 
 def btake_timing_case(idx, X, fill, label, peaks) -> dict:
     t_k = time_ms(lambda: btake_rows(idx, X, fill))
+    t_kk = kernel_ms(lambda: btake_rows(idx, X, fill), "btake_kernel")
     t_p = time_ms(lambda: btake_rows_plain(idx, X, fill))
     flat = idx.clamp_min(0).flatten()
     t_l = time_ms(lambda: X.index_select(1, flat))
@@ -849,9 +956,11 @@ def btake_timing_case(idx, X, fill, label, peaks) -> dict:
     del flat
     return {"case": label, "S": idx.shape[0], "n": idx.shape[1],
             "K": X.shape[0], "n_src": X.shape[1], "n_src_named": used,
-            "dtype": str(X.dtype), "ms": t_k, "plain_ms": t_p,
-            "library_ms": t_l, "bound_ms": t_b, "bound_by": by,
-            "share_of_bound": t_b / t_k, "bytes": n_bytes, "max_abs_err": err}
+            "dtype": str(X.dtype), "ms": t_k, "kernel_ms": t_kk,
+            "plain_ms": t_p, "library_ms": t_l, "bound_ms": t_b,
+            "bound_by": by, "share_of_bound": t_b / t_kk,
+            "share_of_bound_with_wrapper": t_b / t_k, "bytes": n_bytes,
+            "max_abs_err": err}
 
 
 def phase_btake_timing(peaks, setup_launches) -> dict:
@@ -888,13 +997,15 @@ def phase_btake_timing(peaks, setup_launches) -> dict:
                                    "level-1 PMIS read, f64 source", peaks))
     cases.append(btake_timing_case(A1.cols, gid[None], -1,
                                    "level-1 PMIS read, int32 source", peaks))
-    out = {"ms": sum(c["ms"] for c in cases),
-           "plain_ms": sum(c["plain_ms"] for c in cases),
-           "library_ms": sum(c["library_ms"] for c in cases),
+    def total(key):
+        return sum(c[key] for c in cases)
+
+    out = {"ms": total("ms"), "kernel_ms": total("kernel_ms"),
+           "plain_ms": total("plain_ms"), "library_ms": total("library_ms"),
            "library": "Tensor.index_select(1, idx.clamp_min(0).flatten())",
-           "bound_ms": sum(c["bound_ms"] for c in cases),
-           "share_of_bound": sum(c["bound_ms"] for c in cases)
-           / sum(c["ms"] for c in cases),
+           "bound_ms": total("bound_ms"),
+           "share_of_bound": total("bound_ms") / total("kernel_ms"),
+           "share_of_bound_with_wrapper": total("bound_ms") / total("ms"),
            "bound_by": ("bytes" if all(c["bound_by"] == "bytes"
                                        for c in cases) else "operations"),
            "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -998,44 +1109,73 @@ def phase_golden_on_card() -> None:
         raise AssertionError("golden rows on the card: " + "; ".join(failures))
 
 
-def phase_dia_timing(op: DiaMatrix, peaks, gen, per_iter) -> dict:
-    """K3 on the 100^3 operator of the ij run, f64 and f32."""
-    n = IJ_GRID
-    A = laplacian(n, n, n)
-    rows = {}
-    for dtype in (F64, torch.float32):
-        D = op if dtype == F64 else dataclasses.replace(
-            op, vals=op.vals.to(dtype))
-        x = torch.randn(D.n_cols, generator=gen, dtype=dtype, device="cuda")
-        err = check_dia(D, x, f"{n}^3 7pt")["max_abs_err"]
-        lib_A = torch.sparse_csr_tensor(
-            torch.as_tensor(A.indptr, dtype=torch.int32, device="cuda"),
-            torch.as_tensor(A.indices, dtype=torch.int32, device="cuda"),
-            torch.as_tensor(A.data, dtype=dtype, device="cuda"),
-            size=A.shape, check_invariants=False)
-        x2 = x.unsqueeze(1)
-        lib_diff = float((torch.sparse.mm(lib_A, x2)[:, 0]
-                          - dia_matvec(D, x)).abs().max())
-        t_k = time_ms(lambda: dia_matvec(D, x))
-        t_p = time_ms(lambda: dia_matvec_plain(D, x))
-        t_l = time_ms(lambda: torch.sparse.mm(lib_A, x2))
-        item = D.vals.element_size()
-        n_bytes = (len(D.offsets) * D.n_rows * item + D.n_cols * item
-                   + D.n_rows * item + len(D.offsets) * 8)
-        t_b, by = bound_ms(peaks, n_bytes, 2 * len(D.offsets) * D.n_rows,
-                           dtype)
-        rows[str(dtype)] = {
-            "shape": list(D.shape), "n_diags": len(D.offsets),
-            "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+def dia_library(D: DiaMatrix):
+    """D's nonzeros as a sparse CSR tensor (int32 indices) on the card,
+    for torch.sparse.mm."""
+    ar = torch.arange(D.n_rows, device=D.vals.device)
+    rows, cols, vals = [], [], []
+    for k, off in enumerate(D.offsets):
+        j = ar + off
+        keep = (j >= 0) & (j < D.n_cols) & (D.vals[k] != 0)
+        rows.append(ar[keep])
+        cols.append(j[keep])
+        vals.append(D.vals[k][keep])
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        size=D.shape, check_invariants=False).coalesce()
+    csr = coo.to_sparse_csr()
+    return torch.sparse_csr_tensor(
+        csr.crow_indices().to(torch.int32), csr.col_indices().to(torch.int32),
+        csr.values(), size=D.shape, check_invariants=False)
+
+
+def dia_timing_row(D: DiaMatrix, peaks, gen, label: str) -> dict:
+    x = torch.randn(D.n_cols, generator=gen, dtype=D.dtype, device="cuda")
+    err = check_dia(D, x, label)["max_abs_err"]
+    lib_A = dia_library(D)
+    x2 = x.unsqueeze(1)
+    lib_diff = float((torch.sparse.mm(lib_A, x2)[:, 0]
+                      - dia_matvec(D, x)).abs().max())
+    t_k = time_ms(lambda: dia_matvec(D, x))
+    t_kk = kernel_ms(lambda: dia_matvec(D, x), "dia_matvec_")
+    t_p = time_ms(lambda: dia_matvec_plain(D, x))
+    t_l = time_ms(lambda: torch.sparse.mm(lib_A, x2))
+    item = D.vals.element_size()
+    n_bytes = (len(D.offsets) * D.n_rows * item + D.n_cols * item
+               + D.n_rows * item + len(D.offsets) * 8)
+    t_b, by = bound_ms(peaks, n_bytes, 2 * len(D.offsets) * D.n_rows,
+                       D.dtype)
+    return {"op": label, "shape": list(D.shape), "n_diags": len(D.offsets),
+            "dtype": str(D.dtype), "instance": D.launch_args.instance,
+            "ms": t_k, "kernel_ms": t_kk, "plain_ms": t_p, "library_ms": t_l,
             "library": "torch.sparse.mm on a sparse_csr tensor",
             "library_max_abs_diff": lib_diff, "bound_ms": t_b,
-            "bound_by": by, "bytes": n_bytes, "max_abs_err": err}
-        del lib_A, x, x2
+            "bound_by": by, "share_of_bound": t_b / t_kk,
+            "share_of_bound_with_wrapper": t_b / t_k, "bytes": n_bytes,
+            "max_abs_err": err}
+
+
+def phase_dia_timing(amg, peaks, gen, per_iter) -> dict:
+    """K3 on levels 0 and 1 of the ij (a) run (100^3 and its first
+    coarse level, both DIA), f64 and f32; the wrapper's host cost a
+    call on a 16^3 operator, whose kernel takes a few µs."""
+    rows = []
+    for lvl in (0, 1):
+        op = amg.hierarchy.levels[lvl].A
+        for dtype in (F64, torch.float32):
+            D = op if dtype == op.dtype else dataclasses.replace(
+                op, vals=op.vals.to(dtype))
+            rows.append(dia_timing_row(D, peaks, gen, f"A{lvl}"))
+            del D
+    small = dia_from_scipy(laplacian(16, 16, 16), F64, torch.device("cuda"))
+    xs = torch.randn(small.n_cols, generator=gen, dtype=F64, device="cuda")
+    wrap = wrapper_us(lambda: dia_matvec(small, xs))
     reset_counts()
-    out = dict(rows[str(F64)])
+    out = dict(rows[0])
     out["per_pcg_iter"] = per_iter
+    out["wrapper_us"] = wrap
     emit({"phase": "kernel_timing", "kernel": "dia_matvec",
-          "dia_matvec": rows})
+          "wrapper_us": wrap, "dia_matvec": rows})
     return out
 
 
@@ -1078,7 +1218,7 @@ def main() -> int:
     phase_golden_on_card()
     ij_a = ij_runs["a"]["row"]
     timing["dia_matvec"] = phase_dia_timing(
-        ij_runs["a"]["out"]["op"], card["peaks"], gen,
+        ij_runs["a"]["out"]["amg"], card["peaks"], gen,
         ij_a["launches_per_pcg_iter"]["dia_matvec"])
     del ij_runs["a"]["out"], ij_runs["b"]["out"]
     kernels = []
@@ -1114,9 +1254,10 @@ def main() -> int:
         row = {
             "name": name, "route": "cuda", "source": route_src,
             "replaces": replaces, "launches": launches,
-            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]}
+            "max_abs_err": err, "ms": t["ms"], "kernel_ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "share_of_bound": t["bound_ms"] / t["kernel_ms"]}
         if "per_pcg_iter" in t:
             row["launches_per_pcg_iter"] = t["per_pcg_iter"]
         row.update(other)

@@ -26,6 +26,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(HERE), "_build")
@@ -153,6 +154,19 @@ def build_cuda() -> dict[str, dict]:
             log = _finish(proc, so)
             report[src] = {"seconds": time.perf_counter() - t0, "log": log}
         return report
+
+
+# torch's raw accessor of the current stream, where the build has one
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_ptr(device) -> int:
+    """The raw cudaStream_t of `device`'s current stream, for a C entry:
+    through the raw accessor where there is one (building a Stream
+    object costs a few µs a call), else the Stream's own handle."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _cuda_so(src: str) -> str:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from hypre_tpu_torch.core.errors import HypreTpuError
+from hypre_tpu_torch.csrc.build import stream_ptr
 
 _ENTRY = {1: "btake_1", 4: "btake_4", 8: "btake_8"}
 
@@ -95,7 +96,7 @@ def btake_rows(idx: torch.Tensor, X: torch.Tensor, fill=0) -> torch.Tensor:
     err = _kernel(X.element_size())(
         K, S, n, idx.data_ptr(), idx.stride(0), X.data_ptr(), X.stride(0),
         _fill_bits(fill, X.dtype), Y.data_ptr(),
-        torch.cuda.current_stream(X.device).cuda_stream)
+        stream_ptr(X.device))
     if err != 0:
         raise HypreTpuError(f"btake kernel launch failed: CUDA error {err}")
     btake_rows.launches += 1

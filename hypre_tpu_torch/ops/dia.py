@@ -10,20 +10,36 @@ matvec reads no column indices.
 
 ``dia_matvec`` launches kernel K3 (``csrc/dia_matvec.cu``) for a CUDA
 tensor and runs the plain version ``dia_matvec_plain`` for a CPU tensor;
-there is no fallback between the two.
+there is no fallback between the two.  K3 has two instances: up to
+``MAX_DIAGS`` diagonals the offsets travel in the kernel's by-value
+argument ("param"); past that they are read from a device array
+("wide").
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
+import typing
 
 import numpy as np
 import torch
 
 from hypre_tpu_torch.core.errors import HypreTpuError
+from hypre_tpu_torch.csrc.build import stream_ptr
 
 _NP_REAL = {torch.float64: np.float64, torch.float32: np.float32}
+MAX_DIAGS = 40     # kMaxDiags of csrc/dia_matvec.cu
+
+
+class K3Args(typing.NamedTuple):
+    """instance: "param" or "wide"; packed: int64 {min offset, max
+    offset, offsets...}, which the "param" entry copies into the
+    kernel's by-value argument, and its address, for ctypes."""
+
+    instance: str
+    packed: np.ndarray
+    packed_ptr: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,9 +66,19 @@ class DiaMatrix:
 
     @functools.cached_property
     def offsets_dev(self) -> torch.Tensor:
-        """The offsets as int64 on vals' device (K3 reads them there)."""
+        """The offsets as int64 on vals' device (K3's "wide" instance
+        reads them there)."""
         return torch.tensor(self.offsets, dtype=torch.int64,
                             device=self.vals.device)
+
+    @functools.cached_property
+    def launch_args(self) -> K3Args:
+        """K3's argument, packed once per matrix."""
+        offs = list(self.offsets)
+        ends = [min(offs), max(offs)] if offs else [0, 0]
+        packed = np.array(ends + offs, dtype=np.int64)
+        return K3Args("param" if len(offs) <= MAX_DIAGS else "wide",
+                      packed, packed.ctypes.data)
 
 
 def dia_from_scipy(A, dtype: torch.dtype, device,
@@ -91,17 +117,20 @@ def dia_matvec_plain(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-_KERNELS = {torch.float64: "dia_matvec_f64", torch.float32: "dia_matvec_f32"}
+_KERNELS = {torch.float64: "f64", torch.float32: "f32"}
 
 
 @functools.cache
-def _kernel(dtype: torch.dtype):
-    """The C entry of K3 for `dtype`, built and loaded on first use."""
+def _kernel(dtype: torch.dtype, instance: str):
+    """The C entry of K3's `instance` for `dtype`, built and loaded on
+    first use."""
     from hypre_tpu_torch.csrc.build import load_cuda
 
     if dtype not in _KERNELS:
         raise HypreTpuError(f"dia_matvec: unsupported {dtype}")
-    fn = getattr(load_cuda("dia_matvec.cu"), _KERNELS[dtype])
+    name = ("dia_matvec_" if instance == "param" else "dia_matvec_wide_") \
+        + _KERNELS[dtype]
+    fn = getattr(load_cuda("dia_matvec.cu"), name)
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     fn.argtypes = [i64, i64, ctypes.c_int, p, p, p, p, p]
     fn.restype = ctypes.c_int
@@ -123,11 +152,14 @@ def dia_matvec(A: DiaMatrix, x: torch.Tensor) -> torch.Tensor:
             f"({A.n_cols},), got {x.dtype} {tuple(x.shape)}")
     if not A.vals.is_contiguous():
         raise HypreTpuError("dia_matvec: vals must be contiguous")
-    fn = _kernel(A.dtype)
+    args = A.launch_args
+    fn = _kernel(A.dtype, args.instance)
+    offsets = args.packed_ptr if args.instance == "param" \
+        else A.offsets_dev.data_ptr()
     y = torch.empty(A.n_rows, dtype=A.dtype, device=x.device)
-    err = fn(A.n_rows, A.n_cols, len(A.offsets), A.offsets_dev.data_ptr(),
+    err = fn(A.n_rows, A.n_cols, len(A.offsets), offsets,
              A.vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             stream_ptr(x.device))
     if err != 0:
         raise HypreTpuError(f"dia_matvec kernel launch failed: "
                             f"CUDA error {err}")

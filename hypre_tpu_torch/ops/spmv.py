@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from hypre_tpu_torch.core.errors import HypreTpuError
+from hypre_tpu_torch.csrc.build import stream_ptr
 
 
 def group_size(n_rows: int, nnz: int) -> int:
@@ -128,7 +129,7 @@ def csr_spmv(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
         return y
     err = fn(A.n_rows, A.group, A.indptr.data_ptr(), A.indices.data_ptr(),
              A.values.data_ptr(), x.data_ptr(), y.data_ptr(),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             stream_ptr(x.device))
     if err != 0:
         raise HypreTpuError(f"csr_spmv kernel launch failed: "
                             f"CUDA error {err}")

@@ -11,7 +11,10 @@ applies it analytically: kernel K1 in ``csrc/stencil_matvec.cu`` reads
 only x and writes only y.
 
 The TPU kernel's gate (power-of-two nx and ny, n % 1024 == 0) is not
-carried over: the CUDA kernel takes any grid.
+carried over: the CUDA kernel takes any grid.  It has two instances,
+picked by ``kernel_instance`` from the stencil's reach and the grid:
+"tile" (reach 1: x-y tiles staged in shared memory, marching along z)
+and "row" (any reach: one thread a row).
 
 ``stencil_matvec`` launches the kernel for a CUDA tensor and runs the
 plain version ``stencil_matvec_plain`` for a CPU tensor; there is no
@@ -22,13 +25,30 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import typing
 
 import numpy as np
 import torch
 
 from hypre_tpu_torch.core.errors import HypreTpuError
+from hypre_tpu_torch.csrc.build import stream_ptr
 
+_NP_REAL = {torch.float64: np.float64, torch.float32: np.float32}
 MAX_ENTRIES = 27   # kMaxEntries of csrc/stencil_matvec.cu
+TILE_Y = 16        # kTy * kRows: y rows of a tile kernel's block
+MAX_GRID = 65535   # kMaxGrid: the tile kernel's gridDim.y
+
+
+class K1Args(typing.NamedTuple):
+    """instance: "tile" or "row" (kernel_instance); dxyz: int32 (k, 3)
+    offsets and vals: (k,) values, both in the entries' order (one zero
+    row when k = 0); the two arrays' addresses, for ctypes."""
+
+    instance: str
+    dxyz: np.ndarray
+    vals: np.ndarray
+    dxyz_ptr: int
+    vals_ptr: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +73,22 @@ class StencilOp:
         return (self.n_rows, self.n_rows)
 
     @property
+    def reach(self) -> int:
+        """The largest |component| of the entries' offsets."""
+        return max((abs(c) for d, _ in self.entries for c in d), default=0)
+
+    @functools.cached_property
+    def launch_args(self) -> K1Args:
+        """K1's argument, packed once per op."""
+        k = len(self.entries)
+        dxyz = np.zeros((max(k, 1), 3), dtype=np.int32)
+        vals = np.zeros(max(k, 1), dtype=_NP_REAL[self.dtype])
+        for i, (d, v) in enumerate(self.entries):
+            dxyz[i], vals[i] = d, v
+        return K1Args(kernel_instance(self), dxyz, vals, dxyz.ctypes.data,
+                      vals.ctypes.data)
+
+    @property
     def nnz(self) -> int:
         nx, ny, nz = self.grid
         t = 0
@@ -61,6 +97,18 @@ class StencilOp:
                 t += max(nx - abs(dx), 0) * max(ny - abs(dy), 0) \
                     * max(nz - abs(dz), 0)
         return t
+
+
+def kernel_instance(op: StencilOp) -> str:
+    """K1's instance for `op`: "tile" for a stencil of reach 1 on a grid
+    whose x-y plane has fewer than 2^31 cells and whose y fits the
+    tile kernel's launch grid (32-bit indices within a plane), else
+    "row"."""
+    nx, ny, nz = op.grid
+    if op.reach <= 1 and nx * ny < 2 ** 31 and nz < 2 ** 31 \
+            and -(-ny // TILE_Y) <= MAX_GRID:
+        return "tile"
+    return "row"
 
 
 def stencil_op(shape, entries, dtype=None) -> StencilOp:
@@ -103,8 +151,6 @@ def stencil_matvec_plain(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(-1)
 
 
-_NP_REAL = {torch.float64: np.float64, torch.float32: np.float32}
-
 
 @functools.cache
 def _kernel(dtype: torch.dtype):
@@ -116,8 +162,8 @@ def _kernel(dtype: torch.dtype):
     lib = load_cuda("stencil_matvec.cu")
     fn = getattr(lib, "stencil_matvec_f64" if dtype == torch.float64
                  else "stencil_matvec_f32")
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [p, p, i64, i64, i64, ctypes.c_int, p, p, p]
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn.argtypes = [p, p, i64, i64, i64, i32, i32, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -135,16 +181,12 @@ def stencil_matvec(op: StencilOp, x: torch.Tensor) -> torch.Tensor:
             f"stencil_matvec: x must be contiguous {op.dtype} of shape "
             f"({op.n_cols},), got {x.dtype} {tuple(x.shape)}")
     fn = _kernel(op.dtype)
-    k = len(op.entries)
-    dxyz = np.zeros((max(k, 1), 3), dtype=np.int32)
-    dxyz[:k] = [d for (d, _) in op.entries]
-    vals = np.zeros(max(k, 1), dtype=_NP_REAL[op.dtype])
-    vals[:k] = [v for (_, v) in op.entries]
+    args = op.launch_args
     y = torch.empty_like(x)
     nx, ny, nz = op.grid
-    err = fn(x.data_ptr(), y.data_ptr(), nx, ny, nz, k, dxyz.ctypes.data,
-             vals.ctypes.data,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    err = fn(x.data_ptr(), y.data_ptr(), nx, ny, nz, args.instance == "tile",
+             len(op.entries), args.dxyz_ptr, args.vals_ptr,
+             stream_ptr(x.device))
     if err != 0:
         raise HypreTpuError(f"stencil_matvec kernel launch failed: "
                             f"CUDA error {err}")

@@ -10,7 +10,14 @@ over the largest |A| |x| term, f64 1e-12, f32 1e-5 — the two sum in
 other orders and the kernels contract multiply-adds.  K4 (a gather) and
 the device setup are held to bit-for-bit equality.  K3 (DIA) runs on a
 7-pt and a 27-pt operator, a rectangular one whose offsets reach past
-either end, and one of 40 diagonals."""
+either end, and one of 40 diagonals.  Both instances of K1 (tile: reach
+1; row: reach 2) run on grids that are not multiples of the tile or of
+the z chunk, on a stencil with arms missing and on an x that is not
+16-byte aligned (the tile kernel's cell-by-cell staging); both
+instances of K3
+(by-value offsets; wide: 41 diagonals) on 0, 1 and 3 rows, row counts
+odd, 2 mod 4 and 0 mod 4 against K3's 2 (f64) or 4 (f32) rows a thread,
+and x and vals at addresses that are not 16-byte aligned."""
 import dataclasses
 
 import numpy as np
@@ -18,7 +25,8 @@ import pytest
 import scipy.sparse as sp
 import torch
 from torch_port_helpers import (
-    EDGE_CSR, LAPLACE_27PT, LAPLACE_7PT, edge_csr, rel_diff,
+    EDGE_CSR, LAPLACE_27PT, LAPLACE_7PT, SPARSE_ARMS, STAR_13PT, edge_csr,
+    rel_diff,
 )
 
 from hypre_tpu_torch import Config, set_config
@@ -30,7 +38,7 @@ from hypre_tpu_torch.ops.dia import (
 from hypre_tpu_torch.ops.spmv import csr_from_scipy, csr_spmv, csr_spmv_plain
 from hypre_tpu_torch.setup import device_amg as dev
 from hypre_tpu_torch.ops.stencil import (
-    stencil_matvec, stencil_matvec_plain, stencil_op,
+    kernel_instance, stencil_matvec, stencil_matvec_plain, stencil_op,
 )
 from hypre_tpu_torch.solvers import AmgConfig, BoomerAMG, pcg
 
@@ -65,6 +73,48 @@ def test_stencil_kernel_matches_plain(card, grid, stencil, dtype):
     y = stencil_matvec(op, x)
     torch.cuda.synchronize()
     assert stencil_matvec.launches == before + 1
+    absop = stencil_op(grid, [(d, abs(v)) for d, v in stencil], dtype=dtype)
+    _check(y, stencil_matvec_plain(op, x),
+           stencil_matvec_plain(absop, x.abs()), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("stencil,instance",
+                         [(LAPLACE_7PT, "tile"), (LAPLACE_27PT, "tile"),
+                          (SPARSE_ARMS, "tile"), (STAR_13PT, "row")],
+                         ids=["7pt", "27pt", "sparse_arms", "star13"])
+@pytest.mark.parametrize("grid", [(1, 1, 33), (2, 3, 1), (33, 9, 70),
+                                  (45, 13, 20)])
+def test_stencil_kernel_instances(card, grid, stencil, instance, dtype):
+    """(33, 9, 70): z is no multiple of the 16-plane chunk; (45, 13, 20):
+    x and y are no multiples of the 32 x 8 tile."""
+    op = stencil_op(grid, stencil, dtype=dtype)
+    assert kernel_instance(op) == instance
+    x = torch.randn(op.n_rows, dtype=dtype, device=card,
+                    generator=torch.Generator(card).manual_seed(3))
+    before = stencil_matvec.launches
+    y = stencil_matvec(op, x)
+    torch.cuda.synchronize()
+    assert stencil_matvec.launches == before + 1
+    absop = stencil_op(grid, [(d, abs(v)) for d, v in stencil], dtype=dtype)
+    _check(y, stencil_matvec_plain(op, x),
+           stencil_matvec_plain(absop, x.abs()), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("stencil", [LAPLACE_7PT, LAPLACE_27PT],
+                         ids=["7pt", "27pt"])
+def test_stencil_kernel_on_unaligned_x(card, stencil, dtype):
+    """x one element past a 16-byte boundary on a grid whose rows are
+    16-byte multiples: the tile kernel must copy cell by cell."""
+    grid = (64, 32, 16)
+    op = stencil_op(grid, stencil, dtype=dtype)
+    xb = torch.randn(op.n_rows + 1, dtype=dtype, device=card,
+                     generator=torch.Generator(card).manual_seed(8))
+    x = xb[1:]
+    assert x.data_ptr() % 16
+    y = stencil_matvec(op, x)
+    torch.cuda.synchronize()
     absop = stencil_op(grid, [(d, abs(v)) for d, v in stencil], dtype=dtype)
     _check(y, stencil_matvec_plain(op, x),
            stencil_matvec_plain(absop, x.abs()), dtype)
@@ -144,6 +194,67 @@ def test_dia_kernel_matches_plain(card, name, dtype):
     assert dia_matvec.launches == before + 1
     absA = dataclasses.replace(A, vals=A.vals.abs())
     _check(y, dia_matvec_plain(A, x), dia_matvec_plain(absA, x.abs()), dtype)
+
+
+def _dia_random(offs, n_rows, n_cols, dtype, device, seed=0):
+    vals = np.random.default_rng(seed).standard_normal((len(offs), n_rows))
+    return DiaMatrix(vals=torch.as_tensor(vals, dtype=dtype, device=device),
+                     offsets=tuple(offs), n_cols=n_cols)
+
+
+def _check_dia(A, x, dtype):
+    before = dia_matvec.launches
+    y = dia_matvec(A, x)
+    torch.cuda.synchronize()
+    assert dia_matvec.launches == before + 1
+    assert y.shape == (A.n_rows,)
+    if A.n_rows:
+        absA = dataclasses.replace(A, vals=A.vals.abs())
+        _check(y, dia_matvec_plain(A, x), dia_matvec_plain(absA, x.abs()),
+               dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n_rows", [0, 1, 3, 1001, 1002, 1004])
+@pytest.mark.parametrize("shape", ["square", "rect"])
+def test_dia_kernel_on_row_counts(card, shape, n_rows, dtype):
+    """Row counts odd, 2 mod 4 and 0 mod 4, and the smallest; offsets
+    that reach past either end of x."""
+    n_cols = n_rows if shape == "square" else 700
+    offs = [-1200, -33, -2, -1, 0, 1, 4, 31, 900]
+    A = _dia_random(offs, n_rows, n_cols, dtype, card, seed=n_rows)
+    assert A.launch_args.instance == "param"
+    x = torch.randn(n_cols, dtype=dtype, device=card,
+                    generator=torch.Generator(card).manual_seed(4))
+    _check_dia(A, x, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n_diags,instance", [(40, "param"), (41, "wide")])
+@pytest.mark.parametrize("n_rows", [20_011, 20_012])
+def test_dia_kernel_instances(card, n_rows, n_diags, instance, dtype):
+    offs = sorted(np.random.default_rng(n_diags).choice(
+        np.arange(-3000, 3000), n_diags, replace=False).tolist())
+    A = _dia_random(offs, n_rows, n_rows, dtype, card, seed=1)
+    assert A.launch_args.instance == instance
+    x = torch.randn(n_rows, dtype=dtype, device=card,
+                    generator=torch.Generator(card).manual_seed(5))
+    _check_dia(A, x, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dia_kernel_on_unaligned_operands(card, dtype):
+    """x and vals one element past a 16-byte boundary (contiguous views):
+    K3 must not take its 16-byte loads."""
+    n, offs = 40_000, [-200, -1, 0, 1, 200]
+    flat = torch.randn(len(offs) * n + 1, dtype=dtype, device=card,
+                       generator=torch.Generator(card).manual_seed(6))
+    A = DiaMatrix(vals=flat[1:].view(len(offs), n), offsets=tuple(offs),
+                  n_cols=n)
+    xb = torch.randn(n + 1, dtype=dtype, device=card,
+                     generator=torch.Generator(card).manual_seed(7))
+    assert A.vals.data_ptr() % 16 and xb[1:].data_ptr() % 16
+    _check_dia(A, xb[1:], dtype)
 
 
 def test_pcg_on_card_matches_cpu(card):

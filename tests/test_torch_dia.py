@@ -20,7 +20,7 @@ from hypre_tpu_torch import Config, set_config
 from hypre_tpu_torch.core.errors import HypreTpuError
 from hypre_tpu_torch.ops import formats
 from hypre_tpu_torch.ops.dia import (
-    DiaMatrix, dia_from_scipy, dia_matvec, dia_matvec_plain,
+    MAX_DIAGS, DiaMatrix, dia_from_scipy, dia_matvec, dia_matvec_plain,
 )
 
 torch.set_num_threads(1)
@@ -109,6 +109,48 @@ def test_dia_matvec_plain_matches_reference(name):
     got = dia_matvec_plain(port, torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(got, A @ x, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("n_diags,max_diags", [(40, 40), (41, 41)])
+@pytest.mark.parametrize("n", [301, 302, 304])
+def test_dia_matvec_plain_matches_reference_wide(n, n_diags, max_diags):
+    """Bands of K3's by-value limit (40) and one past it, on row counts
+    odd, 2 mod 4 and 0 mod 4."""
+    offs = list(range(-(n_diags // 2), n_diags - n_diags // 2))
+    A = _band(n, [3 * d for d in offs], seed=n)
+    ref = ref_formats.dia_from_scipy(A, np.float64, max_diags=max_diags)
+    port = dia_from_scipy(A, torch.float64, "cpu", max_diags=max_diags)
+    assert len(port.offsets) == n_diags
+    x = np.random.default_rng(6).standard_normal(n)
+    want = np.asarray(ref_formats.dia_matvec(ref, jnp.asarray(x)))
+    np.testing.assert_array_equal(
+        dia_matvec_plain(port, torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("name", list(MATRICES) + ["band40", "band41",
+                                                   "empty"])
+def test_dia_launch_args(name):
+    """K3's packed argument: {min offset, max offset, offsets...} as
+    int64, built once per matrix; the by-value instance up to
+    MAX_DIAGS diagonals, the wide one past it."""
+    if name.startswith("band"):
+        k = int(name[4:])
+        A = dia_from_scipy(_band(500, list(range(-20, k - 20))),
+                           torch.float64, "cpu", max_diags=k)
+    elif name == "empty":
+        A = DiaMatrix(vals=torch.zeros((0, 7), dtype=torch.float64),
+                      offsets=(), n_cols=7)
+    else:
+        A = dia_from_scipy(MATRICES[name](), torch.float64, "cpu")
+    args = A.launch_args
+    offs = list(A.offsets)
+    assert args.packed.dtype == np.int64
+    assert args.packed.tolist() == ([min(offs), max(offs)] + offs
+                                    if offs else [0, 0])
+    assert args.packed_ptr == args.packed.ctypes.data
+    assert A.launch_args is args
+    assert args.instance == ("param" if len(offs) <= MAX_DIAGS else "wide")
+    assert MAX_DIAGS == 40
 
 
 def _formats(A):

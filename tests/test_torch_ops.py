@@ -15,7 +15,8 @@ import pytest
 import scipy.sparse as sp
 import torch
 from torch_port_helpers import (
-    LAPLACE_27PT, LAPLACE_7PT, assert_csr_equal, op_dict,
+    LAPLACE_27PT, LAPLACE_7PT, SPARSE_ARMS, STAR_13PT, assert_csr_equal,
+    op_dict,
 )
 
 from hypre_tpu.ops import formats as ref_formats
@@ -32,7 +33,7 @@ from hypre_tpu_torch.ops.spmv import (
     CsrMatrix, csr_spmv, csr_spmv_plain, group_size,
 )
 from hypre_tpu_torch.ops.stencil import (
-    stencil_matvec, stencil_matvec_plain, stencil_op,
+    kernel_instance, stencil_matvec, stencil_matvec_plain, stencil_op,
 )
 
 torch.set_num_threads(1)
@@ -80,6 +81,69 @@ def test_stencil_plain_matches_reference(grid, stencil, dtype):
         torch.from_numpy(np.abs(x).astype(np.float64)))
     assert y.dtype == TORCH[dtype]
     _close(y, y_ref, scale, dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("stencil", [SPARSE_ARMS, STAR_13PT],
+                         ids=["sparse_arms", "star13"])
+@pytest.mark.parametrize("grid", [(13, 9, 7), (2, 3, 1), (5, 1, 9)])
+def test_stencil_plain_matches_reference_any_reach(grid, stencil, dtype):
+    """The plain version on the stencils of K1's two instances: arms
+    missing (reach 1) and a 13-pt star of reach 2, whose arms leave
+    the (2, 3, 1) and (5, 1, 9) grids wholly."""
+    x = np.random.default_rng(9).standard_normal(np.prod(grid)).astype(dtype)
+    y = stencil_matvec_plain(stencil_op(grid, stencil, dtype=TORCH[dtype]),
+                             torch.from_numpy(x))
+    y_ref = stencil_matvec_reference(ref_stencil_op(grid, stencil,
+                                                    dtype=dtype),
+                                     jnp.asarray(x))
+    scale = stencil_matvec_plain(
+        stencil_op(grid, [(d, abs(v)) for d, v in stencil],
+                   dtype=torch.float64),
+        torch.from_numpy(np.abs(x).astype(np.float64)))
+    _close(y, y_ref, scale, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("stencil", [LAPLACE_7PT, LAPLACE_27PT, SPARSE_ARMS,
+                                     STAR_13PT, []],
+                         ids=["7pt", "27pt", "sparse_arms", "star13",
+                              "empty"])
+def test_stencil_launch_args_keep_the_entries(stencil, dtype):
+    """K1's packed argument: the offsets and values in the entries'
+    order, in the op's type, built once per op."""
+    op = stencil_op((9, 8, 7), stencil, dtype=dtype)
+    args = op.launch_args
+    k = len(stencil)
+    assert args.dxyz.dtype == np.int32 and args.dxyz.shape == (max(k, 1), 3)
+    assert args.vals.dtype == {torch.float64: np.float64,
+                               torch.float32: np.float32}[dtype]
+    assert [tuple(r) for r in args.dxyz[:k]] == [d for d, _ in stencil]
+    np.testing.assert_array_equal(
+        args.vals[:k], np.array([v for _, v in stencil], args.vals.dtype))
+    assert args.dxyz_ptr == args.dxyz.ctypes.data
+    assert args.vals_ptr == args.vals.ctypes.data
+    assert op.launch_args is args
+    assert args.instance == ("row" if stencil is STAR_13PT else "tile")
+
+
+@pytest.mark.parametrize("grid,stencil,reach,instance", [
+    ((256, 256, 256), LAPLACE_7PT, 1, "tile"),
+    ((256, 256, 256), LAPLACE_27PT, 1, "tile"),
+    ((13, 9, 7), STAR_13PT, 2, "row"),
+    ((13, 9, 7), [((0, 0, -3), 1.0)], 3, "row"),
+    ((13, 9, 7), [], 0, "tile"),
+    ((1, 1_048_560, 1), LAPLACE_7PT, 1, "tile"),
+    ((1, 1_048_561, 1), LAPLACE_7PT, 1, "row"),
+    ((65_535, 32_768, 1), LAPLACE_7PT, 1, "tile"),
+    ((65_536, 32_768, 1), LAPLACE_7PT, 1, "row"),
+])
+def test_stencil_kernel_instance(grid, stencil, reach, instance):
+    """The tile instance takes reach 1, x-y planes under 2^31 cells and
+    at most 65,535 tiles of 16 rows in y; the row instance the rest."""
+    op = stencil_op(grid, stencil)
+    assert op.reach == reach
+    assert kernel_instance(op) == instance
 
 
 def test_stencil_op_matches_generated_matrix():

@@ -24,6 +24,13 @@ LAPLACE_7PT = [((0, 0, 0), 6.0), ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0),
 LAPLACE_27PT = [((dx, dy, dz), 26.0 if dx == dy == dz == 0 else -1.0)
                 for dz in (-1, 0, 1) for dy in (-1, 0, 1)
                 for dx in (-1, 0, 1)]
+# reach 2 (K1's row instance): a 13-pt star
+STAR_13PT = [((0, 0, 0), 12.0)] + [
+    (tuple(s * r if a == ax else 0 for a in range(3)), -1.0 / r)
+    for ax in range(3) for r in (1, 2) for s in (-1, 1)]
+# reach 1 with arms missing, in no canonical order (K1's tile instance)
+SPARSE_ARMS = [((0, 0, 1), -0.5), ((0, 0, 0), 4.0), ((-1, 1, -1), -0.25),
+               ((1, 0, 0), -1.0), ((0, -1, 0), -1.5)]
 NATIVE_ENV = ("HYPRE_TPU_NATIVE_SETUP", "HYPRE_TPU_TORCH_NATIVE_SETUP")
 
 
