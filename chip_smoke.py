@@ -61,6 +61,10 @@ Phases, each printing one JSON line:
              port's CPU path (level sizes, CF bit for bit, P and A to
              1e-12 relative); 16^3: the card's level sizes and operator
              complexity equal hypre_tpu's device hierarchy (REF_DEVICE_*).
+             Relax 16 and 11 on the device setup at 16^3: the
+             Chebyshev bounds and ds norms equal hypre_tpu's
+             (REF_DEVICE_CHEBY_*) to 1e-12 and L, U hold
+             REF_DEVICE_TRI_NNZ nonzeros a level.
 11. kernel_timing (K4) — btake_rows on the 256^3 device path's own index
              sets: the level-1 PMIS neighbour read (A1's cols; f64 and
              int32 sources) and one chunk of level 0's P^T (A P) row
@@ -81,13 +85,33 @@ Phases, each printing one JSON line:
              the rest; phase kernel_checks), and one V-cycle and one A x
              of (a) under torch.profiler (phase profile).
 13. golden_on_card — every row of tests/golden/solvers.jobs that the
-             port runs, without -exec_host, on the card, against
+             port runs (14: lines 2-13 and 18-19), without -exec_host,
+             on the card, against
              solvers.saved by runtest's rule (equal iterations, residual
              no worse than rtol 1e-3).
 14. kernel_timing (K3) — dia_matvec on levels 0 and 1 of (a) (both
              DIA), f64 and f32, `ms` and `kernel_ms` beside its plain
              version, torch.sparse.mm and the bound; its wrapper's host
              cost a call (1,000 calls on a 16^3 operator).
+15. amg_breadth — hypre's out.22 (256x256x128 7-pt, PMIS, ext+i,
+             Chebyshev relax 16, PCG tol 1e-8; not cut) in f64 on the
+             card, (a) through setup(A, fine_stencil=...) and (b)
+             through setup_device(stencil=...): one warm-up and three
+             timed solves each, launch counts zeroed before the setup
+             and read after it, zeroed before the solves and read after
+             them, one solve of each profiled.  Fails unless (a) takes the
+             reference's iterations (REF_OUT22_ITERS), (b) at most 30,
+             and both reach a true relres <= 1e-8.  (b)'s setup runs once
+             more with every gather it makes held against K4's plain
+             version, bit for bit.  Then relax 11 (two-stage GS) through
+             setup_device at 64^3; the L and U of a relax-11 and the A^T
+             of a relax-30 host hierarchy at 64^3; and out.17's
+             configuration (27-pt, relax 7 w 0.85, aggressive coarsening
+             with 2-stage interp 5) at 128x128x64, whose levels and
+             iterations must be the reference's (REF_OUT17_*).  Each
+             run's level-0 operator is held against K1's plain version,
+             and each hierarchy's A, P, R (L and U for relax 11, A^T for
+             relax 30) against K2's or K3's, f64 and f32.
 
 Then the kernels line, nvidia-smi's line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises: nothing is
@@ -95,6 +119,7 @@ caught and carried on.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -167,6 +192,35 @@ REF_IJ_ITERS = {1: 12, 2: 249}
 # formats as the port stores them (GstEllMatrix -> CsrMatrix)
 REF_IJ_LEVELS = [1000000, 500000, 157080, 46078, 7914, 1141, 153, 33, 15, 6]
 REF_IJ_FORMATS = ["DiaMatrix"] * 2 + ["CsrMatrix"] * 3 + ["DenseMatrix"] * 5
+# hypre_tpu's device Chebyshev setup (hypre_tpu/solvers/amg.py:730) on
+# each level of the 16^3 hierarchy above, run on the CPU with
+# jax_enable_x64 on the operator its setup_device packs: bounds
+# [lmax, lmin] and the 2-norm of ds = 1/sqrt(|diag|); and the nonzeros
+# of the strict lower (= upper) triangle of each level's A, the L and U
+# of relax 11
+REF_DEVICE_CHEBY_BOUNDS = [[2.0015502666689815, 0.6004650800006944],
+                           [1.3402839450807114, 0.4020851835242134],
+                           [1.2972807465436234, 0.389184223963087],
+                           [1.296751567441647, 0.38902547023249406]]
+REF_DEVICE_CHEBY_DS_NORM = [26.12789058968724, 15.890579991445751,
+                            5.658437690785739, 2.006044825667334]
+REF_DEVICE_TRI_NNZ = [11520, 16068, 4560, 351]
+# hypre's TEST_bench out.22 (benchmark_ij.jobs:80): the 7-pt Laplacian
+# at -n 256 256 128, PMIS, ext+i, relax 16 (Chebyshev, order 2), PCG at
+# tol 1e-8, as tools/golden_cases.py case 22 configures it; not cut.
+# hypre_tpu's count at this size on the CPU in f64, measured with
+#   python tools/golden_cases.py 22
+#     out.22: 14 iters (golden 13) relres 2.76e-09
+OUT22_GRID = (256, 256, 128)
+REF_OUT22_ITERS = 14
+# out.17's configuration (golden_cases.py case 17: 27-pt, relax 7 w 0.85,
+# aggressive coarsening on 1 level with 2-stage interp 5, ext+i, PMIS)
+# at 128x128x64, an eighth of the published 256x256x128 (PERF.md §4);
+# hypre_tpu's host setup and pcg at this size on the CPU in f64:
+# 19 iterations, relres 3.868637865326376e-09
+OUT17_GRID = (128, 128, 64)
+REF_OUT17_ITERS = 19
+REF_OUT17_LEVELS = [1048576, 14762, 1750, 223, 28]
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
 # tolerance of a kernel against its plain version: max |kernel - plain|
 # over max(|A| |x|), the size of the terms summed (order of summation
@@ -513,6 +567,33 @@ def phase_synthetic_checks(gen) -> None:
           "checks": results})
 
 
+def timed_solves(op, M, plain, max_iter: int = 100) -> dict:
+    """One warm-up and three timed pcg(tol=1e-8) solves with b = ones
+    (scaled a little each time) on the card; the true relative residual
+    of the last, with A x by `plain`."""
+    b = torch.ones(op.n_rows, dtype=F64, device="cuda")
+    warm = pcg(op, b, M=M, tol=1e-8, max_iter=max_iter)
+    iters, times = [warm.iters], []
+    for t in range(3):
+        bt = b * (1.0 + 0.0137 * (t + 1))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = pcg(op, bt, M=M, tol=1e-8, max_iter=max_iter)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        iters.append(res.iters)
+    x = res.x
+    if not bool(torch.isfinite(x).all()) or x.shape != (op.n_rows,):
+        raise AssertionError("solution is not finite or has a wrong shape")
+    true_relres = float(torch.linalg.vector_norm(bt - plain(op, x))
+                        / torch.linalg.vector_norm(bt))
+    solve_s = statistics.median(times)
+    return {"iters": res.iters, "iters_all_solves": iters,
+            "relres": res.relres, "true_relres": true_relres,
+            "solve_s": solve_s, "solve_times_s": times,
+            "per_iter_ms": solve_s / max(res.iters, 1) * 1e3}
+
+
 def phase_main_path() -> dict:
     set_config(Config(real_dtype=F64, device="cuda"))
     n = GRID
@@ -527,46 +608,23 @@ def phase_main_path() -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     op = amg.hierarchy.levels[0].A
-    b = torch.ones(n ** 3, dtype=F64, device="cuda")
-    warm = pcg(op, b, M=amg, tol=1e-8, max_iter=100)
-    iters = [warm.iters]
-    times, results = [], []
-    for t in range(3):
-        bt = b * (1.0 + 0.0137 * (t + 1))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        res = pcg(op, bt, M=amg, tol=1e-8, max_iter=100)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t1)
-        iters.append(res.iters)
-        results.append((bt, res))
+    sol = timed_solves(op, amg, stencil_matvec_plain)
     launches = read_counts()
-    bt, res = results[-1]
-    x = res.x
-    r_true = bt - stencil_matvec_plain(op, x)
-    true_relres = float(torch.linalg.vector_norm(r_true)
-                        / torch.linalg.vector_norm(bt))
-    solve_s = statistics.median(times)
     out = {
         "phase": "main_path", "grid": [n, n, n],
         "dtype": "float64", "levels": amg.level_sizes,
         "operator_complexity": round(amg.operator_complexity, 3),
         "operator_complexity_raw": amg.operator_complexity,
-        "level_formats": amg.level_formats, "iters": res.iters,
-        "iters_all_solves": iters, "relres": res.relres,
-        "true_relres": true_relres, "gen_s": gen_s, "setup_s": setup_s,
-        "solve_s": solve_s, "solve_times_s": times,
-        "per_iter_ms": solve_s / max(res.iters, 1) * 1e3,
-        "launches": launches,
+        "level_formats": amg.level_formats, "gen_s": gen_s,
+        "setup_s": setup_s, **sol, "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "v100_reference": {"setup_s": 0.706, "solve_s": 0.580,
                            "iters": 20},
     }
     emit(out)
-    if not bool(torch.isfinite(x).all()) or x.shape != (n ** 3,):
-        raise AssertionError("solution is not finite or has a wrong shape")
-    if true_relres > 1e-8:
-        raise AssertionError(f"true relative residual {true_relres:.3e}")
+    if sol["true_relres"] > 1e-8:
+        raise AssertionError(f"true relative residual "
+                             f"{sol['true_relres']:.3e}")
     if amg.level_sizes != REF_LEVELS or round(
             amg.operator_complexity, 3) != REF_OPERATOR_COMPLEXITY:
         raise AssertionError("hierarchy differs from the reference's")
@@ -576,22 +634,24 @@ def phase_main_path() -> dict:
     return {"amg": amg, "op": op, "launches": launches, "out": out}
 
 
-def hierarchy_ops(amg, kinds=(CsrMatrix,)) -> list[tuple[str, object]]:
+def hierarchy_ops(amg, kinds=(CsrMatrix,),
+                  names=("A", "P", "R")) -> list[tuple[str, object]]:
     ops = []
     for l, lvl in enumerate(amg.hierarchy.levels):
-        for name in ("A", "P", "R"):
+        for name in names:
             m = getattr(lvl, name)
             if isinstance(m, kinds):
                 ops.append((f"{name}{l}", m))
     return ops
 
 
-def phase_hierarchy_checks(amg, gen, path: str) -> dict:
+def phase_hierarchy_checks(amg, gen, path: str,
+                           names=("A", "P", "R")) -> dict:
     """Every DIA and CSR operator of the hierarchy (A, P, R of each
-    level) against its kernel's plain version, f64 and f32; returns the
-    largest f64 error by kernel."""
+    level, or the fields `names`) against its kernel's plain version,
+    f64 and f32; returns the largest f64 error by kernel."""
     results = []
-    for label, A in hierarchy_ops(amg, (CsrMatrix, DiaMatrix)):
+    for label, A in hierarchy_ops(amg, (CsrMatrix, DiaMatrix), names):
         for dtype in (torch.float64, torch.float32):
             if isinstance(A, DiaMatrix):
                 Ad = A if dtype == A.dtype else dataclasses.replace(
@@ -838,23 +898,9 @@ def phase_device_setup(host_setup_s: float) -> dict:
     setup_launches = read_counts()
     setup_peak = torch.cuda.max_memory_allocated() / 1e9
     op = amg.hierarchy.levels[0].A
-    b = torch.ones(n ** 3, dtype=F64, device="cuda")
     reset_counts()
-    warm = pcg(op, b, M=amg, tol=1e-8, max_iter=100)
-    iters, times, results = [warm.iters], [], []
-    for t in range(3):
-        bt = b * (1.0 + 0.0137 * (t + 1))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        res = pcg(op, bt, M=amg, tol=1e-8, max_iter=100)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t1)
-        iters.append(res.iters)
-        results.append((bt, res))
+    sol = timed_solves(op, amg, stencil_matvec_plain)
     solve_launches = read_counts()
-    bt, res = results[-1]
-    true_relres = float(torch.linalg.vector_norm(
-        bt - stencil_matvec_plain(op, res.x)) / torch.linalg.vector_norm(bt))
     split = [{k: st[k] for k in (
         "level", "n", "w", "n_coarse", "strength_s", "pmis_s", "pmis_rounds",
         "interp_s", "rap_s", "pack_s", "w_p", "w_ap", "w_pt", "w_ac")
@@ -867,18 +913,15 @@ def phase_device_setup(host_setup_s: float) -> dict:
         "host_setup_s": host_setup_s, "per_level": split,
         "stage_totals_s": {k: sum(st.get(k, 0.0) for st in split) for k in (
             "strength_s", "pmis_s", "interp_s", "rap_s", "pack_s")},
-        "iters": res.iters, "iters_all_solves": iters, "relres": res.relres,
-        "true_relres": true_relres, "solve_s": statistics.median(times),
-        "solve_times_s": times, "peak_mem_gb": setup_peak,
+        **sol, "peak_mem_gb": setup_peak,
         "peak_mem_gb_with_solves": torch.cuda.max_memory_allocated() / 1e9,
         "launches_setup": setup_launches, "launches_solves": solve_launches,
     }
     emit(out)
-    if not bool(torch.isfinite(res.x).all()) or res.x.shape != (n ** 3,):
-        raise AssertionError("device path: solution not finite or misshapen")
-    if true_relres > 1e-8 or max(iters) > 30:
-        raise AssertionError(f"device path: true relres {true_relres:.3e} "
-                             f"in {iters} iterations")
+    if sol["true_relres"] > 1e-8 or max(sol["iters_all_solves"]) > 30:
+        raise AssertionError(f"device path: true relres "
+                             f"{sol['true_relres']:.3e} in "
+                             f"{sol['iters_all_solves']} iterations")
     if setup_launches["btake_rows"] == 0:
         raise AssertionError("btake_rows was not launched in setup_device")
     for name in ("stencil_matvec", "csr_spmv"):
@@ -929,6 +972,7 @@ def phase_device_setup_parity() -> None:
            "operator_complexity": amg.operator_complexity,
            "reference_levels": REF_DEVICE_LEVELS,
            "reference_operator_complexity": REF_DEVICE_OPERATOR_COMPLEXITY}
+    out.update(device_relax_parity())
     emit(out)
     if sizes_g != sizes_c or not cf_equal or a_rel > 1e-12 or p_rel > 1e-12:
         raise AssertionError("device setup: card and CPU disagree at 32^3")
@@ -937,6 +981,38 @@ def phase_device_setup_parity() -> None:
             or amg.operator_complexity != REF_DEVICE_OPERATOR_COMPLEXITY:
         raise AssertionError("device setup: 16^3 hierarchy differs from "
                              "hypre_tpu's")
+
+
+def _nonzeros(op) -> int:
+    return int(((op.values if isinstance(op, CsrMatrix) else op.vals) != 0)
+               .sum())
+
+
+def device_relax_parity() -> dict:
+    """Relax 16 and 11 on the device setup at 16^3: the card's Chebyshev
+    bounds and ds norms equal hypre_tpu's (REF_DEVICE_CHEBY_*) to 1e-12
+    relative and L, U hold REF_DEVICE_TRI_NNZ nonzeros a level.  (The
+    card against the port's CPU path, bit for bit at 32^3, is
+    tests/test_torch_cuda.py::test_setup_device_relax_on_card_matches_cpu.)"""
+    m = 16
+    lv16 = BoomerAMG(AmgConfig(interp_type=6, relax_type=16)).setup_device(
+        stencil=((m, m, m), LAPLACE_7PT)).hierarchy.levels[:-1]
+    lv11 = BoomerAMG(AmgConfig(interp_type=6, relax_type=11)).setup_device(
+        stencil=((m, m, m), LAPLACE_7PT)).hierarchy.levels[:-1]
+    bounds = [list(lv.cheby_bounds) for lv in lv16]
+    ds_norm = [float(torch.linalg.vector_norm(lv.cheby_ds)) for lv in lv16]
+    ref_rel = max(abs(a - b) / abs(b) for got, want in (
+        (sum(bounds, []), sum(REF_DEVICE_CHEBY_BOUNDS, [])),
+        (ds_norm, REF_DEVICE_CHEBY_DS_NORM)) for a, b in zip(got, want))
+    tri_nnz = [[_nonzeros(lv.L), _nonzeros(lv.U)] for lv in lv11]
+    out = {"relax16_bounds": bounds, "relax16_ds_norm": ds_norm,
+           "relax16_max_rel_diff_vs_reference": ref_rel,
+           "relax11_L_U_nonzeros": tri_nnz}
+    if len(bounds) != len(REF_DEVICE_CHEBY_BOUNDS) or not ref_rel <= 1e-12 \
+            or tri_nnz != [[k, k] for k in REF_DEVICE_TRI_NNZ]:
+        raise AssertionError(f"device relax 16/11: 16^3 differs from "
+                             f"hypre_tpu's: {out}")
+    return out
 
 
 def btake_timing_case(idx, X, fill, label, peaks) -> dict:
@@ -1109,6 +1185,208 @@ def phase_golden_on_card() -> None:
         raise AssertionError("golden rows on the card: " + "; ".join(failures))
 
 
+def breadth_run(label: str, grid, entries, cfg: AmgConfig,
+                device_setup: bool, gen) -> dict:
+    """One configuration through the port's entry points on the card:
+    BoomerAMG(cfg).setup(A, fine_stencil=...) or .setup_device(stencil=
+    ...), then timed_solves.  Launch counts are zeroed just before the
+    setup and read after it, and zeroed before the solves and read after
+    them.  Then K1 on the run's level-0 operator against its plain
+    version (`k1_err`)."""
+    set_config(Config(real_dtype=F64, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    A = None
+    if not device_setup:
+        A = (laplacian_27pt if len(entries) == 27 else laplacian)(*grid)
+    gen_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    amg = BoomerAMG(cfg)
+    if device_setup:
+        amg.setup_device(stencil=(grid, entries))
+    else:
+        amg.setup(A, fine_stencil=(grid, entries))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launches_setup = read_counts()
+    del A
+    op = amg.hierarchy.levels[0].A
+    reset_counts()
+    sol = timed_solves(op, amg, stencil_matvec_plain)
+    launches = read_counts()
+    row = {"phase": "amg_breadth", "run": label, "grid": list(grid),
+           "stencil_points": len(entries), "dtype": "float64",
+           "setup": "setup_device" if device_setup else "setup (host)",
+           "config": {k: v for k, v in dataclasses.asdict(cfg).items()
+                      if v != getattr(AmgConfig(), k)},
+           "levels": amg.level_sizes,
+           "operator_complexity": amg.operator_complexity,
+           "level_formats": amg.level_formats, "gen_s": gen_s,
+           "setup_s": setup_s, **sol,
+           "launches_setup": launches_setup, "launches_solves": launches,
+           "launches_per_pcg_iter": launches_per_iter(amg.precondition, op),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if device_setup:
+        row["per_level"] = amg.setup_stats
+    x = torch.randn(op.n_rows, generator=gen, dtype=F64, device="cuda")
+    row["k1_check"] = check_stencil(op, x)
+    reset_counts()
+    del x
+    emit(row)
+    if sol["true_relres"] > 1e-8:
+        raise AssertionError(f"{label}: true relres {sol['true_relres']:.3e}")
+    for name in ("stencil_matvec", "csr_spmv"):
+        if launches[name] == 0:
+            raise AssertionError(f"{label}: {name} was not launched in the "
+                                 f"solves")
+    return {"amg": amg, "op": op, "row": row,
+            "k1_err": row["k1_check"]["max_abs_err"]}
+
+
+@contextlib.contextmanager
+def gathers_checked(checks: list):
+    """While open, every gather that setup/device_amg.py makes (btake,
+    btake_rows) is held against btake_rows_plain on the same index set
+    and source, bit for bit; each appends its case to `checks`."""
+    rows, one = dev.btake_rows, dev.btake
+
+    def held(Y, idx, X, fill):
+        torch.cuda.synchronize()
+        Y_ref = btake_rows_plain(idx, X, fill)
+        if not torch.equal(Y, Y_ref):
+            raise AssertionError(f"btake_rows in setup_device, S, n = "
+                                 f"{tuple(idx.shape)}, {X.dtype}: differs "
+                                 f"from its plain version")
+        checks.append({"S": idx.shape[0], "n": idx.shape[1],
+                       "K": X.shape[0], "dtype": str(X.dtype),
+                       "max_abs_err": float((Y.double() - Y_ref.double())
+                                            .abs().max()) if Y.numel()
+                       else 0.0})
+
+    def btake_rows_held(idx, X, fill=0):
+        Y = rows(idx, X, fill)
+        held(Y, idx, X, fill)
+        return Y
+
+    def btake_held(idx, x, fill=0):
+        y = one(idx, x, fill)
+        held(y[None], idx, x[None, :], fill)
+        return y
+
+    dev.btake_rows, dev.btake = btake_rows_held, btake_held
+    try:
+        yield checks
+    finally:
+        dev.btake_rows, dev.btake = rows, one
+
+
+def phase_amg_breadth(gen) -> dict:
+    """out.22 at its published size through the host setup (a) and the
+    device setup (b), each with one solve profiled; relax 11 through the
+    device setup at 64^3; the L, U and A^T of relax 11 and 30 host
+    hierarchies at 64^3; out.17's configuration at 128x128x64.  Every
+    run's level-0 operator on K1 and its hierarchy's operators (with
+    relax 11's L and U) on K2 and K3, each against its plain version;
+    (b)'s setup once more with each of its gathers held against K4's
+    plain version.  Returns the rows and the largest f64 error by
+    kernel."""
+    errs = {}
+
+    def fold(e):
+        for k, v in e.items():
+            errs[k] = max(v, errs.get(k, 0.0))
+
+    cheby = dict(relax_type=16, interp_type=6, print_level=1)
+    a = breadth_run("out.22 (a) host setup", OUT22_GRID, LAPLACE_7PT,
+                    AmgConfig(**cheby), False, gen)
+    iters = a["row"]["iters_all_solves"]
+    if set(iters) != {REF_OUT22_ITERS}:
+        raise AssertionError(f"out.22 (a): iterations {iters}, the "
+                             f"reference's {REF_OUT22_ITERS}")
+    b_ones = torch.ones(a["op"].n_rows, dtype=F64, device="cuda")
+    phase_profile("out.22 (a) host setup", lambda: {"iters": pcg(
+        a["op"], b_ones, M=a["amg"], tol=1e-8, max_iter=100).iters},
+        "one pcg solve")
+    fold({"stencil_matvec": a["k1_err"]})
+    fold(phase_hierarchy_checks(a["amg"], gen, "out.22 (a) host setup"))
+    del a["amg"], a["op"], b_ones
+    torch.cuda.empty_cache()
+    b = breadth_run("out.22 (b) device setup", OUT22_GRID, LAPLACE_7PT,
+                    AmgConfig(**cheby), True, gen)
+    if max(b["row"]["iters_all_solves"]) > 30:
+        raise AssertionError(f"out.22 (b): iterations "
+                             f"{b['row']['iters_all_solves']} > 30")
+    if b["row"]["launches_setup"]["btake_rows"] == 0:
+        raise AssertionError("out.22 (b): btake_rows was not launched")
+    b_ones = torch.ones(b["op"].n_rows, dtype=F64, device="cuda")
+    phase_profile("out.22 (b) device setup", lambda: {"iters": pcg(
+        b["op"], b_ones, M=b["amg"], tol=1e-8, max_iter=100).iters},
+        "one pcg solve")
+    fold({"stencil_matvec": b["k1_err"]})
+    fold(phase_hierarchy_checks(b["amg"], gen, "out.22 (b) device setup"))
+    sizes = b["amg"].level_sizes
+    del b["amg"], b["op"], b_ones
+    torch.cuda.empty_cache()
+    # (b)'s setup again, its gathers held against K4's plain version; the
+    # same hierarchy must come out
+    with gathers_checked([]) as gathers:
+        again = BoomerAMG(AmgConfig(**cheby)).setup_device(
+            stencil=(OUT22_GRID, LAPLACE_7PT))
+    reset_counts()
+    emit({"phase": "kernel_checks", "set": "setup gathers",
+          "path": "out.22 (b) device setup", "kernel_names": ["btake_rows"],
+          "n_checks": len(gathers),
+          "dtypes": sorted({g["dtype"] for g in gathers}),
+          "largest_S_n": max((g["S"] * g["n"], g["S"], g["n"])
+                             for g in gathers)[1:],
+          "max_abs_err": max(g["max_abs_err"] for g in gathers)})
+    if again.level_sizes != sizes or not gathers:
+        raise AssertionError(f"out.22 (b) with its gathers checked: levels "
+                             f"{again.level_sizes}, {len(gathers)} gathers")
+    fold({"btake_rows": max(g["max_abs_err"] for g in gathers)})
+    del again, gathers
+    torch.cuda.empty_cache()
+    # two-stage GS end to end: the device setup's L and U on K2
+    m = 64
+    gs = breadth_run(f"relax 11 at {m}^3 device setup", (m, m, m),
+                     LAPLACE_7PT, AmgConfig(interp_type=6, relax_type=11),
+                     True, gen)
+    if max(gs["row"]["iters_all_solves"]) > 30:
+        raise AssertionError(f"relax 11: iterations "
+                             f"{gs['row']['iters_all_solves']} > 30")
+    fold({"stencil_matvec": gs["k1_err"]})
+    fold(phase_hierarchy_checks(gs["amg"], gen, f"{m}^3 relax 11 device "
+                                f"setup", ("A", "P", "R", "L", "U")))
+    del gs
+    # the smoothers' own operators, from host hierarchies at 64^3: L, U
+    # (relax 11; the first row of L and the last of U are empty) and A^T
+    # (relax 30)
+    for rt, names in ((11, ("A", "P", "R", "L", "U")), (30, ("AT",))):
+        h = BoomerAMG(AmgConfig(interp_type=6, relax_type=rt)).setup(
+            laplacian(m, m, m))
+        fold(phase_hierarchy_checks(h, gen, f"{m}^3 relax {rt}", names))
+        del h
+    c = breadth_run("out.17 configuration at 128x128x64", OUT17_GRID,
+                    LAPLACE_27PT, AmgConfig(
+                        relax_type=7, relax_weight=0.85, agg_num_levels=1,
+                        agg_interp_type=5, interp_type=6, print_level=1),
+                    False, gen)
+    if c["row"]["levels"] != REF_OUT17_LEVELS \
+            or set(c["row"]["iters_all_solves"]) != {REF_OUT17_ITERS}:
+        raise AssertionError(f"out.17-128: levels {c['row']['levels']}, "
+                             f"iterations {c['row']['iters_all_solves']}; "
+                             f"the reference's {REF_OUT17_LEVELS}, "
+                             f"{REF_OUT17_ITERS}")
+    fold({"stencil_matvec": c["k1_err"]})
+    fold(phase_hierarchy_checks(c["amg"], gen, "out.17 configuration at "
+                                "128x128x64"))
+    del c["amg"], c["op"]
+    torch.cuda.empty_cache()
+    return {"a": a["row"], "b": b["row"], "c": c["row"], "errs": errs}
+
+
 def dia_library(D: DiaMatrix):
     """D's nonzeros as a sparse CSR tensor (int32 indices) on the card,
     for torch.sparse.mm."""
@@ -1221,19 +1499,24 @@ def main() -> int:
         ij_runs["a"]["out"]["amg"], card["peaks"], gen,
         ij_a["launches_per_pcg_iter"]["dia_matvec"])
     del ij_runs["a"]["out"], ij_runs["b"]["out"]
+    torch.cuda.empty_cache()
+    breadth = phase_amg_breadth(gen)
+    out22 = {f"launches_out22_{tag}_{when}": breadth[tag][f"launches_{when}"]
+             for tag in ("a", "b") for when in ("setup", "solves")}
     kernels = []
     for name, route_src, replaces, err, launches, other in (
             # K1, K2: the out.14 host path's run (K2 also serves the ij
             # runs); K3: the ij driver's run (a); K4: the device path's
             # setup, the only path that gathers
             ("stencil_matvec", "hypre_tpu_torch/csrc/stencil_matvec.cu",
-             "hypre_tpu/ops/stencil_pallas.py:123", k1_err,
+             "hypre_tpu/ops/stencil_pallas.py:123",
+             max(k1_err, breadth["errs"]["stencil_matvec"]),
              main_path["launches"]["stencil_matvec"],
              {"launches_device_path": device_path["out"]["launches_solves"][
                  "stencil_matvec"]}),
             ("csr_spmv", "hypre_tpu_torch/csrc/csr_spmv.cu",
              "hypre_tpu/ops/gstell.py:719",
-             max(k2_err, ij_errs["csr_spmv"]),
+             max(k2_err, ij_errs["csr_spmv"], breadth["errs"]["csr_spmv"]),
              main_path["launches"]["csr_spmv"],
              {"launches_device_path": device_path["out"]["launches_solves"][
                  "csr_spmv"], "launches_ij_driver_a": ij_a["launches"][
@@ -1247,7 +1530,8 @@ def main() -> int:
                  "dia_matvec"]}),
             ("btake_rows", "hypre_tpu_torch/csrc/btake.cu",
              "hypre_tpu/ops/btake.py:285",
-             timing["btake_rows"]["max_abs_err"],
+             max(timing["btake_rows"]["max_abs_err"],
+                 breadth["errs"]["btake_rows"]),
              device_path["launches"]["btake_rows"],
              {"launches_device_path": device_path["launches"]["btake_rows"]})):
         t = timing[name]
@@ -1261,6 +1545,8 @@ def main() -> int:
         if "per_pcg_iter" in t:
             row["launches_per_pcg_iter"] = t["per_pcg_iter"]
         row.update(other)
+        if name != "dia_matvec":
+            row.update({k: v[name] for k, v in out22.items()})
         kernels.append(row)
     emit({"kernels": kernels})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

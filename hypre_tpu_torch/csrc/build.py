@@ -88,11 +88,19 @@ def load():
             ctypes.c_int64, _i64p, _i32p, _f64p,
             ctypes.c_double, ctypes.c_double, ctypes.c_int32, _u8p]
         lib.pmis.argtypes = [ctypes.c_int64, _i64p, _i32p, _f64p, _i32p]
+        lib.cljp.argtypes = [
+            ctypes.c_int64, _i64p, _i32p, _f64p, _i32p, ctypes.c_int32]
+        lib.rs_second_pass.argtypes = [
+            ctypes.c_int64, _i64p, _i32p, _i32p]
         lib.direct_interp.argtypes = [
             ctypes.c_int64, ctypes.c_int32, _i64p, _i32p, _f64p, _u8p,
             _i32p, _i32p, _i64p, _i32p, _f64p]
         lib.extpi_interp.argtypes = [
             ctypes.c_int64, ctypes.c_int32, _i64p, _i32p, _f64p, _u8p,
+            _i32p, _i32p, _f64p, _i64p, _i32p, _f64p]
+        lib.lr_interp.argtypes = [
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+            _i64p, _i32p, _f64p, _u8p,
             _i32p, _i32p, _f64p, _i64p, _i32p, _f64p]
         lib.truncate_interp.argtypes = [
             ctypes.c_int64, ctypes.c_int32, _i64p, _i32p, _f64p,
@@ -123,7 +131,8 @@ def load():
                    "direct_interp", "extpi_interp", "truncate_interp",
                    "spgemm", "csr_transpose", "stencil_csr",
                    "mask_to_csr", "l1_norms", "pmis_measure",
-                   "gs_wavefronts"):
+                   "gs_wavefronts", "cljp", "rs_second_pass",
+                   "lr_interp"):
             getattr(lib, fn).restype = None
         _lib = lib
         return lib
@@ -235,7 +244,38 @@ def pmis(S, measure: np.ndarray) -> np.ndarray:
     return cf
 
 
-def _interp_two_pass(fn_name, A, strong, cf, cmap, extra=()):
+def cljp(S, measure, cf_init_marker=None):
+    """CLJP coarsening (cf_init_marker: existing C/F seed = Falgout)."""
+    lib = load()
+    n = S.shape[0]
+    indptr = np.ascontiguousarray(S.indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(S.indices, dtype=np.int32)
+    meas = np.ascontiguousarray(measure, dtype=np.float64).copy()
+    if cf_init_marker is None:
+        cf = np.zeros(n, dtype=np.int32)
+        init = 0
+    else:
+        cf = np.ascontiguousarray(cf_init_marker, dtype=np.int32).copy()
+        init = 1
+    lib.cljp(n, _p(indptr, _i64p), _p(indices, _i32p),
+             _p(meas, _f64p), _p(cf, _i32p), init)
+    return cf
+
+
+def rs_second_pass(S, cf):
+    """Classical RS second pass (F-F common-C enforcement), in place
+    on a copy."""
+    lib = load()
+    n = S.shape[0]
+    indptr = np.ascontiguousarray(S.indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(S.indices, dtype=np.int32)
+    out = np.ascontiguousarray(cf, dtype=np.int32).copy()
+    lib.rs_second_pass(n, _p(indptr, _i64p), _p(indices, _i32p),
+                       _p(out, _i32p))
+    return out
+
+
+def _interp_two_pass(fn_name, A, strong, cf, cmap, extra=(), lead=()):
     import scipy.sparse as sp
 
     lib = load()
@@ -246,7 +286,7 @@ def _interp_two_pass(fn_name, A, strong, cf, cmap, extra=()):
     cf32 = np.ascontiguousarray(cf, dtype=np.int32)
     cmap32 = np.ascontiguousarray(cmap, dtype=np.int32)
     p_indptr = np.zeros(n + 1, dtype=np.int64)
-    args0 = [n, 0, _p(indptr, _i64p), _p(indices, _i32p),
+    args0 = [n, 0, *lead, _p(indptr, _i64p), _p(indices, _i32p),
              _p(data, _f64p), _p(strong_u8, _u8p), _p(cf32, _i32p),
              _p(cmap32, _i32p), *extra, _p(p_indptr, _i64p),
              _i32p(), _f64p()]
@@ -254,7 +294,7 @@ def _interp_two_pass(fn_name, A, strong, cf, cmap, extra=()):
     nnz = int(p_indptr[n])
     p_indices = np.zeros(nnz, dtype=np.int32)
     p_data = np.zeros(nnz, dtype=np.float64)
-    args1 = [n, 1, _p(indptr, _i64p), _p(indices, _i32p),
+    args1 = [n, 1, *lead, _p(indptr, _i64p), _p(indices, _i32p),
              _p(data, _f64p), _p(strong_u8, _u8p), _p(cf32, _i32p),
              _p(cmap32, _i32p), *extra, _p(p_indptr, _i64p),
              _p(p_indices, _i32p), _p(p_data, _f64p)]
@@ -272,6 +312,14 @@ def extpi_interp(A, strong, cf, cmap):
     diag = np.ascontiguousarray(A.diagonal(), dtype=np.float64)
     return _interp_two_pass("extpi_interp", A, strong, cf, cmap,
                             extra=(_p(diag, _f64p),))
+
+
+def lr_interp(A, strong, cf, cmap, variant: int):
+    """Classical (0) / extended (14) / standard (8, 9=sep_weight)."""
+    diag = np.ascontiguousarray(A.diagonal(), dtype=np.float64)
+    return _interp_two_pass("lr_interp", A, strong, cf, cmap,
+                            extra=(_p(diag, _f64p),),
+                            lead=(variant,))
 
 
 def truncate_interp(P, trunc_factor: float, max_elmts: int):

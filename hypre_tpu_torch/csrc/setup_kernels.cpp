@@ -1,16 +1,18 @@
 // Native host setup kernels for hypre_tpu_torch.
 //
 // Host OpenMP C++, not device code: the AMG setup's irregular graph
-// algorithms over CSR (strength of connection, PMIS and the HMIS
-// first pass, direct and ext+i interpolation, truncation, SpGEMM,
+// algorithms over CSR (strength of connection, PMIS, CLJP/Falgout and
+// the Ruge-Stueben passes, direct, ext+i and the long-range (classical,
+// standard, extended) interpolations, truncation, SpGEMM,
 // transpose, l1 norms, the stencil generator, the Gauss-Seidel
 // wavefront levels).  This is the port's own copy of the subset of
 // hypre_tpu/csrc/setup_kernels.cpp that the port calls, kept
 // byte-for-byte in every function body so the two packages build the
 // same hierarchy bit for bit.  The reference semantics are hypre's
 // (src/parcsr_ls/par_strength.c, par_coarsen.c, par_interp.c,
-// par_lr_interp.c); every kernel has a numpy twin in
-// hypre_tpu_torch/setup/ (gs_wavefronts: ops/trisolve.py).  Built with
+// par_lr_interp.c); every kernel but cljp and rs_second_pass (native
+// only, as in the reference) has a numpy twin in hypre_tpu_torch/setup/
+// (gs_wavefronts: ops/trisolve.py).  Built with
 // g++ by csrc/build.py and loaded with ctypes.
 
 #include <algorithm>
@@ -108,6 +110,188 @@ void rs_first_pass(int64_t n,
   }
   for (int64_t i = 0; i < n; ++i)
     if (cf[i] == 0) cf[i] = F_PT;
+}
+
+// ---------------------------------------------------------------------------
+// CLJP coarsening, single-rank semantics of hypre_BoomerAMGCoarsen
+// (ref: par_coarsen.c:93-1390): iterative independent-set selection
+// with the two CLJP heuristics (C-points remove their S edges and
+// decrement neighbor measures; F/unassigned points drop edges to
+// neighbors that share a common-C dependency, decrementing measures).
+// cf_init = 1 runs the Falgout variant: the caller passes cf with an
+// existing C/F splitting (Ruge-Stüben first pass); its C points seed
+// the first round's independent set (F points rejoin the graph).
+// measure: ST-degree + deterministic hash (caller-provided); modified.
+// ---------------------------------------------------------------------------
+void cljp(int64_t n, const int64_t* s_indptr, const int32_t* s_indices,
+          double* measure, int32_t* cf, int32_t cf_init) {
+  const int64_t nnz = s_indptr[n];
+  std::vector<int64_t> sj(s_indices, s_indices + nnz);  // sign-removable
+  std::vector<int64_t> graph;
+  graph.reserve(n);
+  constexpr int32_t COMMON_C = 2;
+
+  if (cf_init == 1) {
+    for (int64_t i = 0; i < n; ++i) {
+      if (cf[i] == SF_PT) {
+        measure[i] = 0;
+        continue;
+      }
+      if (cf[i] == F_PT) cf[i] = 0;
+      graph.push_back(i);
+    }
+  } else {
+    for (int64_t i = 0; i < n; ++i) {
+      if (cf[i] == SF_PT) {
+        measure[i] = 0;
+        continue;
+      }
+      cf[i] = 0;
+      if (s_indptr[i + 1] == s_indptr[i]) {
+        cf[i] = SF_PT;
+        measure[i] = 0;
+      } else {
+        graph.push_back(i);
+      }
+    }
+  }
+  int64_t graph_size = (int64_t)graph.size();
+  int64_t iter = 0;
+
+  while (true) {
+    // ---- set F points / drop assigned from graph ----
+    if (iter || cf_init != 1) {
+      for (int64_t ig = 0; ig < graph_size; ++ig) {
+        const int64_t i = graph[ig];
+        if (cf[i] != C_PT && measure[i] < 1) {
+          cf[i] = F_PT;
+          for (int64_t p = s_indptr[i]; p < s_indptr[i + 1]; ++p)
+            if (sj[p] > -1) { cf[i] = 0; break; }
+        }
+        if (cf[i]) {
+          measure[i] = 0;
+          --graph_size;
+          graph[ig] = graph[graph_size];
+          graph[graph_size] = i;
+          --ig;
+        }
+      }
+    }
+    if (graph_size == 0) break;
+
+    // ---- independent set among measure > 1 (all original edges) ----
+    if (iter || cf_init != 1) {
+      for (int64_t ig = 0; ig < graph_size; ++ig) {
+        const int64_t i = graph[ig];
+        if (measure[i] > 1) cf[i] = 1;
+      }
+      for (int64_t ig = 0; ig < graph_size; ++ig) {
+        const int64_t i = graph[ig];
+        if (measure[i] <= 1) continue;
+        for (int64_t p = s_indptr[i]; p < s_indptr[i + 1]; ++p) {
+          int64_t j = sj[p];
+          if (j < 0) j = -j - 1;
+          if (measure[j] > 1) {
+            if (measure[i] > measure[j]) cf[j] = 0;
+            else if (measure[j] > measure[i]) cf[i] = 0;
+          }
+        }
+      }
+    }
+    ++iter;
+
+    // ---- set C points and apply the heuristics ----
+    for (int64_t ig = 0; ig < graph_size; ++ig) {
+      const int64_t i = graph[ig];
+      if (cf[i] > 0) {
+        cf[i] = C_PT;
+        for (int64_t p = s_indptr[i]; p < s_indptr[i + 1]; ++p) {
+          const int64_t j = sj[p];
+          if (j > -1) {
+            sj[p] = -j - 1;
+            if (!cf[j]) measure[j] -= 1.0;
+          }
+        }
+      } else {
+        // mark C dependencies of i as COMMON_C; drop edges to C/SF
+        for (int64_t p = s_indptr[i]; p < s_indptr[i + 1]; ++p) {
+          int64_t j = sj[p];
+          if (j < 0) j = -j - 1;
+          if (cf[j] > 0) {
+            if (sj[p] > -1) sj[p] = -sj[p] - 1;
+            cf[j] = COMMON_C;
+          } else if (cf[j] == SF_PT) {
+            if (sj[p] > -1) sj[p] = -sj[p] - 1;
+          }
+        }
+        // drop edges to unassigned j that depend on a COMMON_C
+        for (int64_t p = s_indptr[i]; p < s_indptr[i + 1]; ++p) {
+          if (sj[p] <= -1) continue;
+          const int64_t j = sj[p];
+          for (int64_t q = s_indptr[j]; q < s_indptr[j + 1]; ++q) {
+            int64_t k = sj[q];
+            if (k < 0) k = -k - 1;
+            if (cf[k] == COMMON_C) {
+              sj[p] = -sj[p] - 1;
+              measure[j] -= 1.0;
+              break;
+            }
+          }
+        }
+        // reset COMMON_C back to C
+        for (int64_t p = s_indptr[i]; p < s_indptr[i + 1]; ++p) {
+          int64_t j = sj[p];
+          if (j < 0) j = -j - 1;
+          if (cf[j] == COMMON_C) cf[j] = C_PT;
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Ruge-Stüben second pass, single-rank semantics (ref:
+// par_coarsen.c:1400-1640, coarsen_type 1 interior branch): every
+// strong F-F pair must share a common C; violations tentatively
+// promote the neighbor (ci_tilde) and re-examine, or promote i itself.
+// ---------------------------------------------------------------------------
+void rs_second_pass(int64_t n, const int64_t* s_indptr,
+                    const int32_t* s_indices, int32_t* cf) {
+  std::vector<int64_t> graph(n, -1);
+  int64_t ci_tilde = -1, ci_tilde_mark = -1;
+  int32_t C_i_nonempty = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    if (ci_tilde_mark != i) ci_tilde = -1;
+    if (cf[i] != F_PT) continue;
+    for (int64_t p = s_indptr[i]; p < s_indptr[i + 1]; ++p)
+      if (cf[s_indices[p]] > 0) graph[s_indices[p]] = i;
+    for (int64_t p = s_indptr[i]; p < s_indptr[i + 1]; ++p) {
+      const int64_t j = s_indices[p];
+      if (cf[j] != F_PT) continue;
+      bool set_empty = true;
+      for (int64_t q = s_indptr[j]; q < s_indptr[j + 1]; ++q) {
+        if (graph[s_indices[q]] == i) { set_empty = false; break; }
+      }
+      if (set_empty) {
+        if (C_i_nonempty) {
+          cf[i] = C_PT;
+          if (ci_tilde > -1) {
+            cf[ci_tilde] = F_PT;
+            ci_tilde = -1;
+          }
+          C_i_nonempty = 0;
+          break;
+        } else {
+          ci_tilde = j;
+          ci_tilde_mark = i;
+          cf[j] = C_PT;
+          C_i_nonempty = 1;
+          --i;
+          break;
+        }
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -406,6 +590,211 @@ void extpi_interp(int64_t n, int32_t pass,
         p_data[w0 + (int64_t)s] = acc[s] * inv;
         marker[patt[s]] = i;  // restore row stamp
       }
+    }
+  }
+  if (pass == 0) {
+    p_indptr[0] = 0;
+    for (int64_t i = 0; i < n; ++i) p_indptr[i + 1] += p_indptr[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Long-range interpolation family (single-rank semantics of hypre's
+// host builders):
+//   variant 0:  classical modified (hypre_BoomerAMGBuildInterp,
+//               ref: par_interp.c:15-900) — distance-1 pattern,
+//               strong-F couplings distributed over common strong C
+//               with the sign filter sgn(a_jj)*a_jl < 0.
+//   variant 14: extended (hypre_BoomerAMGBuildExtInterp, ref:
+//               par_lr_interp.c:4777-5520) — same distribution but
+//               over the distance-2 pattern (strong C of i plus
+//               strong C of strong-F neighbors).
+//   variant 8/9: standard (hypre_BoomerAMGBuildStdInterp, ref:
+//               par_lr_interp.c:22-1010) — eliminates strong-F rows
+//               into an extended row ahat over the distance-2
+//               pattern; 9 = sep_weight (pos/neg scaled separately).
+// Two-pass like the other interp kernels.
+// ---------------------------------------------------------------------------
+void lr_interp(int64_t n, int32_t pass, int32_t variant,
+               const int64_t* a_indptr, const int32_t* a_indices,
+               const double* a_data, const uint8_t* strong,
+               const int32_t* cf, const int32_t* cmap,
+               const double* diag /* a_ii per row */,
+               int64_t* p_indptr,
+               int32_t* p_indices, double* p_data) {
+  const bool dist2 = (variant != 0);
+  const bool standard = (variant == 8 || variant == 9);
+  const bool sep = (variant == 9);
+#pragma omp parallel
+  {
+    std::vector<int64_t> marker(n, -1);   // C-pattern stamps / slots
+    std::vector<int64_t> fslot(n, -1);    // F-slot stamp (standard)
+    std::vector<int32_t> patt, fpnt;
+    std::vector<double> acc, facc;
+    patt.reserve(64);
+
+#pragma omp for schedule(dynamic, 256)
+    for (int64_t i = 0; i < n; ++i) {
+      if (cf[i] == C_PT) {
+        if (pass == 0) {
+          p_indptr[i + 1] = 1;
+        } else {
+          p_indices[p_indptr[i]] = cmap[i];
+          p_data[p_indptr[i]] = 1.0;
+        }
+        continue;
+      }
+      if (cf[i] == 0 || cf[i] == SF_PT) {
+        if (pass == 0) p_indptr[i + 1] = 0;
+        continue;
+      }
+      // ---- pattern: strong C of i (+ strong C of strong-F, dist2) --
+      patt.clear();
+      const int64_t b = a_indptr[i], e = a_indptr[i + 1];
+      for (int64_t p = b; p < e; ++p) {
+        if (!strong[p]) continue;
+        const int32_t j = a_indices[p];
+        if (cf[j] == C_PT) {
+          if (marker[j] != i) {
+            marker[j] = i;
+            patt.push_back(j);
+          }
+        } else if (dist2 && cf[j] == F_PT) {
+          for (int64_t q = a_indptr[j]; q < a_indptr[j + 1]; ++q) {
+            if (!strong[q]) continue;
+            const int32_t l = a_indices[q];
+            if (cf[l] == C_PT && marker[l] != i) {
+              marker[l] = i;
+              patt.push_back(l);
+            }
+          }
+        }
+      }
+      if (pass == 0) {
+        p_indptr[i + 1] = (int64_t)patt.size();
+        continue;
+      }
+      std::sort(patt.begin(), patt.end());
+      const int64_t w0 = p_indptr[i];
+      acc.assign(patt.size(), 0.0);
+      for (size_t s = 0; s < patt.size(); ++s)
+        marker[patt[s]] = -((int64_t)s + 2);  // slot = -marker - 2
+
+      if (!standard) {
+        // ---- classical / extended distribution ----
+        double d = diag[i];
+        for (int64_t p = b; p < e; ++p) {
+          const int32_t j = a_indices[p];
+          if (j == i) continue;
+          const double aij = a_data[p];
+          if (marker[j] <= -2) {
+            acc[-marker[j] - 2] += aij;
+          } else if (strong[p] && cf[j] == F_PT) {
+            const double sgn = (diag[j] > 0) - (diag[j] < 0);
+            double denom = 0.0;
+            for (int64_t q = a_indptr[j]; q < a_indptr[j + 1]; ++q) {
+              const int32_t l = a_indices[q];
+              if (l == j) continue;
+              const double ajl = a_data[q];
+              if (sgn * ajl >= 0) continue;
+              if (marker[l] <= -2) denom += ajl;
+            }
+            if (denom == 0.0) {
+              d += aij;
+            } else {
+              const double dist = aij / denom;
+              for (int64_t q = a_indptr[j]; q < a_indptr[j + 1]; ++q) {
+                const int32_t l = a_indices[q];
+                if (l == j) continue;
+                const double ajl = a_data[q];
+                if (sgn * ajl >= 0) continue;
+                if (marker[l] <= -2) acc[-marker[l] - 2] += dist * ajl;
+              }
+            }
+          } else if (cf[j] != SF_PT) {
+            d += aij;
+          }
+        }
+        const double inv = (d != 0.0) ? (-1.0 / d) : 1.0;
+        for (size_t s = 0; s < patt.size(); ++s) {
+          p_indices[w0 + (int64_t)s] = cmap[patt[s]];
+          p_data[w0 + (int64_t)s] = acc[s] * inv;
+          marker[patt[s]] = i;
+        }
+        continue;
+      }
+
+      // ---- standard: eliminate strong-F rows into ahat ----
+      // C slots live in acc[]; F slots in facc[] (slot 0 = i itself,
+      // matching hypre's first-F-slot-is-i convention so "diagonal"
+      // picks up elimination feedback onto i)
+      fpnt.clear();
+      facc.clear();
+      fslot[i] = 0;
+      fpnt.push_back((int32_t)i);
+      facc.push_back(diag[i]);
+      auto add_at = [&](int32_t k, double v, bool from_elim) {
+        if (marker[k] <= -2) {
+          acc[-marker[k] - 2] += v;
+        } else if (from_elim || cf[k] != SF_PT) {
+          if (fslot[k] < 1 || (size_t)fslot[k] >= facc.size() ||
+              fpnt[fslot[k]] != k) {
+            if (k == (int32_t)i) { facc[0] += v; return; }
+            fslot[k] = (int64_t)facc.size();
+            fpnt.push_back(k);
+            facc.push_back(v);
+          } else {
+            facc[fslot[k]] += v;
+          }
+        }
+      };
+      for (int64_t p = b; p < e; ++p) {
+        const int32_t j = a_indices[p];
+        if (j == i) continue;
+        const double aij = a_data[p];
+        if (strong[p] && cf[j] == F_PT) {
+          const double ajj = diag[j];
+          if (ajj != 0.0) {
+            const double dist = aij / ajj;
+            for (int64_t q = a_indptr[j]; q < a_indptr[j + 1]; ++q) {
+              const int32_t k = a_indices[q];
+              if (k == j) continue;
+              add_at(k, -a_data[q] * dist, true);
+            }
+          }
+        } else {
+          add_at(j, aij, false);
+        }
+      }
+      const double d = facc[0];
+      double sum_c = 0.0, sum_all = 0.0;
+      double pos_c = 0.0, neg_c = 0.0, pos = 0.0, neg = 0.0;
+      for (double v : acc) {
+        sum_c += v;
+        if (v > 0) pos_c += v; else neg_c += v;
+      }
+      sum_all = sum_c;
+      pos = pos_c;
+      neg = neg_c;
+      for (size_t s = 1; s < facc.size(); ++s) {
+        sum_all += facc[s];
+        if (facc[s] > 0) pos += facc[s]; else neg += facc[s];
+      }
+      double alfa = 1.0, beta = 1.0;
+      if (sep) {
+        if (neg_c * d != 0.0) alfa = neg / neg_c / d;
+        if (pos_c * d != 0.0) beta = pos / pos_c / d;
+      } else {
+        if (sum_c * d != 0.0) alfa = sum_all / sum_c / d;
+        beta = alfa;
+      }
+      for (size_t s = 0; s < patt.size(); ++s) {
+        p_indices[w0 + (int64_t)s] = cmap[patt[s]];
+        p_data[w0 + (int64_t)s] =
+            (acc[s] > 0) ? -beta * acc[s] : -alfa * acc[s];
+        marker[patt[s]] = i;
+      }
+      for (int32_t k : fpnt) fslot[k] = -1;
     }
   }
   if (pass == 0) {

@@ -11,10 +11,9 @@ generators, and the same output tail (ref: src/test/ij.c:4427-4430):
 Solvers 0 (AMG), 1 (AMG-PCG), 2 (DS-PCG), 3 (AMG-GMRES), 4 (DS-GMRES),
 9 (AMG-BiCGSTAB) and 10 (DS-BiCGSTAB) run; the others, ``-lobpcg``,
 ``-fromfile``, ``-rhsfromfile`` and ``-printsystem`` raise
-NotImplementedError naming their ROADMAP.md item, and AMG options
-outside the port raise through ``amg.check_ported``.  The driver's
-defaults are hypre's: HMIS, ext+i (6), relax 13 (exact hybrid l1-GS),
-P_max 4.
+NotImplementedError naming their ROADMAP.md item; every AMG flag runs.
+The driver's defaults are hypre's: HMIS, ext+i (6), relax 13 (exact
+hybrid l1-GS), P_max 4.
 
 It runs on the configured device (the card by default); ``-exec_host``
 runs that one call on the CPU in f64 and restores the caller's Config

@@ -881,6 +881,15 @@ def device_rap(A: DEll, P: DEll, chunk: int | None = None,
     return Ac, PT
 
 
+def device_diagonal(A: DEll) -> torch.Tensor:
+    """The diagonal of A, zero where a row stores none (the reference's
+    ``_row_diag``, device_amg.py:457)."""
+    d = torch.empty(A.n_rows, dtype=A.vals.dtype, device=A.device)
+    for c0, c1 in _chunks(A.n_rows, 16 * A.width):
+        d[c0:c1] = _row_diag_rows(A.cols[:, c0:c1], A.vals[:, c0:c1], c0)[0]
+    return d
+
+
 def device_l1_norms(A: DEll, option: int = 1) -> torch.Tensor:
     """Smoother l1 row norms, matching setup/l1norms.l1_norms on one
     process (ref: src/parcsr_ls/ams.c:628-760): option 1 = full row l1;

@@ -35,10 +35,12 @@ from hypre_tpu_torch.ops.btake import btake_rows, btake_rows_plain
 from hypre_tpu_torch.ops.dia import (
     DiaMatrix, dia_from_scipy, dia_matvec, dia_matvec_plain,
 )
+from hypre_tpu_torch.ops.formats import CsrMatrix, DenseMatrix
 from hypre_tpu_torch.ops.spmv import csr_from_scipy, csr_spmv, csr_spmv_plain
 from hypre_tpu_torch.setup import device_amg as dev
 from hypre_tpu_torch.ops.stencil import (
-    kernel_instance, stencil_matvec, stencil_matvec_plain, stencil_op,
+    StencilOp, kernel_instance, stencil_matvec, stencil_matvec_plain,
+    stencil_op,
 )
 from hypre_tpu_torch.solvers import AmgConfig, BoomerAMG, pcg
 
@@ -339,3 +341,86 @@ def test_setup_device_on_card_matches_cpu(card):
             else:
                 assert torch.equal(a.cols.cpu(), b.cols)
                 assert torch.equal(a.vals.cpu(), b.vals)
+
+
+@pytest.mark.parametrize("relax,fields", [(11, ("L", "U")), (30, ("AT",))])
+def test_smoother_operators_on_card(card, relax, fields):
+    """K2 on the smoothers' own operators of a 24^3 host hierarchy: the
+    strict triangles of relax 11 (the first row of L and the last of U
+    are empty) and A^T of relax 30, f64 and f32, against the plain
+    version; at least one of each is CSR."""
+    amg = BoomerAMG(AmgConfig(interp_type=6, relax_type=relax)).setup(
+        laplacian(24, 24, 24))
+    n_csr = 0
+    for lvl in amg.hierarchy.levels[:-1]:
+        for name in fields:
+            A = getattr(lvl, name)
+            if not isinstance(A, CsrMatrix):
+                continue
+            n_csr += 1
+            for dtype in (torch.float64, torch.float32):
+                Ad = A if dtype == A.dtype else A.to(dtype)
+                x = torch.randn(A.n_cols, dtype=dtype, device=card,
+                                generator=torch.Generator(card).manual_seed(3))
+                before = csr_spmv.launches
+                y = csr_spmv(Ad, x)
+                torch.cuda.synchronize()
+                assert csr_spmv.launches == before + 1
+                absA = dataclasses.replace(Ad, values=Ad.values.abs())
+                _check(y, csr_spmv_plain(Ad, x), csr_spmv_plain(absA, x.abs()),
+                       dtype)
+    assert n_csr >= len(fields)
+
+
+def test_sqrt_rn_on_card_matches_numpy(card):
+    """core/ieee.py's square root on the card: bit for bit numpy's, on
+    random doubles of every exponent and on the doubles around squares."""
+    from hypre_tpu_torch.core.ieee import sqrt_rn
+
+    rng = np.random.default_rng(12)
+    n = 1_000_000
+    bits = (rng.integers(1, 0x7FE, n, dtype=np.int64) << 52) \
+        | rng.integers(0, 1 << 52, n, dtype=np.int64)
+    sq = np.arange(1, n + 1, dtype=np.float64) ** 2
+    d = np.concatenate([bits.view(np.float64), rng.uniform(0.5, 64.0, n),
+                        sq, np.nextafter(sq, 0), np.nextafter(sq, 2 * sq)])
+    got = sqrt_rn(torch.from_numpy(d).to(card)).cpu().numpy()
+    np.testing.assert_array_equal(got, np.sqrt(d))
+
+
+@pytest.mark.parametrize("relax", [16, 11])
+def test_setup_device_relax_on_card_matches_cpu(card, relax):
+    """32^3, relax 16 and 11 on the device setup: the card's hierarchy
+    equals the CPU's bit for bit (level sizes, nonzeros, every packed
+    A, P, R, the l1 diagonal), and so do relax 11's L and U and
+    Chebyshev's ds = 1/sqrt(|diag|) (core/ieee.py's square root is
+    correctly rounded on both); the Chebyshev bounds to 1e-12 (the power
+    iteration's norms sum in another order on the card)."""
+    n = 32
+    levels = {}
+    for device in ("cuda", "cpu"):
+        set_config(Config(device=device))
+        amg = BoomerAMG(AmgConfig(interp_type=6, relax_type=relax)) \
+            .setup_device(stencil=((n, n, n), LAPLACE_7PT))
+        levels[device] = (amg.level_sizes, amg.level_nnz,
+                          amg.hierarchy.levels[:-1])
+    (gs, gn, gl), (cs, cn, cl) = levels["cuda"], levels["cpu"]
+    assert gs == cs and gn == cn
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a.cpu(), b)
+        if isinstance(a, CsrMatrix):
+            return all(torch.equal(getattr(a, k).cpu(), getattr(b, k))
+                       for k in ("indptr", "indices", "values"))
+        if isinstance(a, DenseMatrix):
+            return torch.equal(a.vals.cpu(), b.vals)
+        return type(a) is type(b) and (a is None or isinstance(a, StencilOp))
+
+    for g, c in zip(gl, cl):
+        for name in ("A", "P", "R", "dinv", "L", "U"):
+            assert same(getattr(g, name), getattr(c, name)), name
+        if relax == 16:
+            assert torch.equal(g.cheby_ds.cpu(), c.cheby_ds)
+            for a, b in zip(g.cheby_bounds, c.cheby_bounds):
+                assert abs(a - b) <= 1e-12 * abs(b)

@@ -1,7 +1,8 @@
 """The port's ij driver and golden harness.
 
-Each row of tests/golden/solvers.jobs that the port runs (lines 2-8 and
-10) goes through hypre_tpu_torch.testing.runtest against
+Each row of tests/golden/solvers.jobs that the port runs (lines 2-13
+and 18-19: every AMG option of the file, with solvers 1-4 and 9) goes
+through hypre_tpu_torch.testing.runtest against
 tests/golden/solvers.saved, which is the reference's own output, by the
 reference harness's rule: equal iterations (iter_slack 0) and a residual
 no worse than the golden one by more than rtol 1e-3.  The other rows
@@ -25,8 +26,8 @@ torch.set_num_threads(1)
 GOLDEN = Path(__file__).parent / "golden"
 JOBS = runtest.read_jobs(GOLDEN / "solvers.jobs")
 SAVED = runtest.read_golden(GOLDEN / "solvers.saved")
-# solvers.jobs lines 2-8 and 10 (its first line is a comment)
-PORTED_ROWS = [0, 1, 2, 3, 4, 5, 6, 8]
+# solvers.jobs lines 2-13 and 18-19 (its first line is a comment)
+PORTED_ROWS = list(range(12)) + [16, 17]
 OTHER_ROWS = [i for i in range(len(JOBS)) if i not in PORTED_ROWS]
 PORT_CLASS = {"DenseMatrix": "DenseMatrix", "DiaMatrix": "DiaMatrix",
               "GstEllMatrix": "CsrMatrix", "EllMatrix": "CsrMatrix"}

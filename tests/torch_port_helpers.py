@@ -10,8 +10,11 @@ device setup, ``dell_to_port`` carries a reference DEll across,
 ``check_extpi_equal`` holds one ext+i stage against the reference's and
 ``ref_device_hierarchy`` chains the reference's stage functions into a
 whole hierarchy.  ``edge_csr`` builds the row-length patterns that K2's
-row blocks must handle.  Reference modules are imported inside the functions:
-this module is imported by every port test.
+row blocks must handle.  For the AMG breadth tests, ``coupled_system``
+builds a systems problem, ``check_host_hierarchy`` holds the port's
+host hierarchy against the reference's and ``amg_pair`` sets up both
+packages' BoomerAMG on one Laplacian.  Reference modules are imported
+inside the functions: this module is imported by every port test.
 """
 from __future__ import annotations
 
@@ -307,3 +310,76 @@ def check_device_hierarchy(ref_side, items, amg, which: str) -> None:
         assert amg.level_sizes == sizes and amg.level_nnz == nnz
         assert amg.operator_complexity == sum(nnz) / nnz[0]
         assert len(amg.setup_stats) == len(levels)
+
+
+def coupled_system(n, nf=2, eps=0.1):
+    """nf coupled 2-D Laplacians on an n x n grid, interleaved (dof i =
+    node i//nf, function i%nf): block diagonal plus a small symmetric
+    cross coupling on each node, the systems problem of
+    tests/test_systems.py."""
+    from hypre_tpu_torch.gen import laplacian
+
+    L = laplacian(n, n, 1).tocoo()
+    nn = L.shape[0]
+    rows = [L.row * nf + f for f in range(nf)]
+    cols = [L.col * nf + f for f in range(nf)]
+    vals = [L.data for _ in range(nf)]
+    for f in range(nf):
+        for g in range(nf):
+            if f != g:
+                rows.append(np.arange(nn) * nf + f)
+                cols.append(np.arange(nn) * nf + g)
+                vals.append(np.full(nn, eps))
+    A = sp.csr_matrix((np.concatenate(vals),
+                       (np.concatenate(rows), np.concatenate(cols))),
+                      shape=(nn * nf, nn * nf))
+    A.sum_duplicates()
+    return A
+
+
+def check_host_hierarchy(A, tol: float = 0.0, **kw) -> None:
+    """The port's host hierarchy of A under AmgConfig(**kw) against
+    hypre_tpu's: the same number of levels (three or more), CF bit for
+    bit, and each level's A, P, R and the coarsest A with equal indptr
+    and indices.  tol = 0: the values bit for bit; otherwise within tol
+    of each operator's largest entry (for AIR and GSMG, whose batched
+    LAPACK solves may part in the last bits)."""
+    from hypre_tpu.solvers import amg as ref_amg
+    from hypre_tpu_torch.solvers import amg as port_amg
+
+    port = list(port_amg.iter_host_hierarchy(A, port_amg.AmgConfig(**kw)))
+    ref = list(ref_amg.iter_host_hierarchy(A, ref_amg.AmgConfig(**kw)))
+    assert len(port) == len(ref) >= 3
+    pairs = []
+    for (a, p, r, cf), (a2, p2, r2, cf2) in zip(port[:-1], ref[:-1]):
+        np.testing.assert_array_equal(cf, cf2)
+        pairs += [(a, a2), (p, p2), (r, r2)]
+    pairs.append((port[-1], ref[-1]))
+    for m, m2 in pairs:
+        if tol == 0.0:
+            assert_csr_equal(m, m2)
+        else:
+            m, m2 = sp.csr_matrix(m), sp.csr_matrix(m2)
+            np.testing.assert_array_equal(m.indptr, m2.indptr)
+            np.testing.assert_array_equal(m.indices, m2.indices)
+            assert_ops_close(m2, m, tol)
+
+
+def amg_pair(n: int, stencil: bool = False, **kw):
+    """hypre_tpu's and the port's BoomerAMG, host setup, of the n^3 7-pt
+    Laplacian under AmgConfig(interp_type=6, **kw), level 0 as the
+    analytic stencil if asked: (reference, port), with equal level
+    sizes.  The port's side on the configured device."""
+    from hypre_tpu.gen import laplacian as ref_laplacian
+    from hypre_tpu.solvers import amg as ref_amg
+    from hypre_tpu_torch.gen import laplacian
+    from hypre_tpu_torch.solvers import amg as port_amg
+
+    kw = dict(interp_type=6, **kw)
+    fine = ((n, n, n), LAPLACE_7PT) if stencil else None
+    ref = ref_amg.BoomerAMG(ref_amg.AmgConfig(**kw)).setup(
+        ref_laplacian(n, n, n), fine_stencil=fine)
+    port = port_amg.BoomerAMG(port_amg.AmgConfig(**kw)).setup(
+        laplacian(n, n, n), fine_stencil=fine)
+    assert port.level_sizes == ref.level_sizes
+    return ref, port
