@@ -84,9 +84,8 @@ Phases, each printing one JSON line:
              plain version, f64 and f32 (K3 on the DIA levels 0-1, K2 on
              the rest; phase kernel_checks), and one V-cycle and one A x
              of (a) under torch.profiler (phase profile).
-13. golden_on_card — every row of tests/golden/solvers.jobs that the
-             port runs (14: lines 2-13 and 18-19), without -exec_host,
-             on the card, against
+13. golden_on_card — every row of tests/golden/solvers.jobs (18: lines
+             2-19), without -exec_host, on the card, against
              solvers.saved by runtest's rule (equal iterations, residual
              no worse than rtol 1e-3).
 14. kernel_timing (K3) — dia_matvec on levels 0 and 1 of (a) (both
@@ -112,6 +111,34 @@ Phases, each printing one JSON line:
              run's level-0 operator is held against K1's plain version,
              and each hierarchy's A, P, R (L and U for relax 11, A^T for
              relax 30) against K2's or K3's, f64 and f32.
+
+16. ij_solvers — the ij driver's remaining solvers through
+             drivers.ij.run in f64 on the card, b = ones, the driver's
+             defaults: (a) every solver id that ij_driver does not run
+             (5, 6, 8, 12, 16, 17, 18, 20, 43, 50, 51, 60, 61, 80, 81)
+             at -n 100 100 100 (level 0 DIA on K3), the AMG ids on one
+             shared setup, each held to the reference's iterations
+             (REF_IJ_SOLVER_ITERS; AMG-CGNR, whose count wanders with
+             rounding, within 2%: REF_IJ_SOLVER_SLACK; 6, 17, 18 and 60
+             stop unconverged at 1000 in the reference too and are held
+             to its residual, rtol 1e-3); (b) -lobpcg -solver 1 at 128^3 (2,097,152 rows, past
+             the DIA limit, so A is CSR and the block products run
+             K2-NV), held to the reference's iterations and to the
+             analytic eigenvalues of the Dirichlet Laplacian within
+             1e-6 relative, one step's work profiled; (c) MGR-GMRES on
+             tests/test_mgr.py's two-field system at 2,097,152 rows and
+             at a 16th of that, whose iterations must be the port's and
+             the reference's on the CPU (coarse AMG with max_row_sum
+             1.0: see MGR_AMG); (d) -printsystem at 24^3 in a
+             temporary directory, read back with -fromfile and
+             -rhsfromfile in the same iterations.  Launch counts are
+             zeroed just before each run and read just after.  Then
+             K2-NV (csr_spmm) against its plain version at nv in
+             NV_CHECK, f64 and f32, on (b)'s A, every CSR A, P, R of the
+             100^3 hierarchy and a random CSR with empty and long rows
+             (nv = 1 bit for bit K2's), and its timing at (b)'s shape
+             (nv = 4, 8, 12) beside its plain version, nv K2 launches,
+             torch.sparse.mm and the bound.
 
 Then the kernels line, nvidia-smi's line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises: nothing is
@@ -141,9 +168,11 @@ from hypre_tpu_torch.ops.btake import btake_rows, btake_rows_plain
 from hypre_tpu_torch.ops.dia import (
     DiaMatrix, dia_from_scipy, dia_matvec, dia_matvec_plain,
 )
-from hypre_tpu_torch.ops.formats import CsrMatrix, matvec
+from hypre_tpu_torch.ops.formats import (
+    CsrMatrix, DenseMatrix, matmat, matvec,
+)
 from hypre_tpu_torch.ops.spmv import (
-    csr_from_scipy, csr_spmv, csr_spmv_plain,
+    csr_from_scipy, csr_spmm, csr_spmm_plain, csr_spmv, csr_spmv_plain,
 )
 from hypre_tpu_torch.ops.stencil import (
     stencil_matvec, stencil_matvec_plain, stencil_op,
@@ -221,6 +250,57 @@ REF_OUT22_ITERS = 14
 OUT17_GRID = (128, 128, 64)
 REF_OUT17_ITERS = 19
 REF_OUT17_LEVELS = [1048576, 14762, 1750, 223, 28]
+# hypre_tpu's ij driver (hypre_tpu/drivers/ij.py, run as a module) at
+# 100^3 on the CPU in f64, every solver id that the ij_driver phase does
+# not run, each with -n 100 100 100 -solver S -exec_host: iterations, and
+# the final relative residual it printed (6, 17, 18 and 60 stop at
+# -max_iter 1000 unconverged).  -solver 5 does not compile there (the
+# while_loop inlines the exact-GS cycle twice and LLVM runs out of mapped
+# memory); its count is the reference's cgnr with the cycle jitted once,
+# python tools/ij_reference_counts.py cgnr 100
+REF_IJ_SOLVER_ITERS = {5: 203, 6: 1000, 8: 152, 12: 272, 16: 15, 17: 1000,
+                       18: 1000, 20: 14, 43: 117, 50: 525, 51: 12,
+                       60: 1000, 61: 13, 80: 783, 81: 98}
+REF_IJ_SOLVER_RELRES = {5: 8.638056e-09, 6: 6.954759e-01, 8: 9.021267e-09,
+                        12: 9.222296e-09, 16: 6.981601e-11,
+                        17: 6.211218e-02, 18: 1.574823e-04,
+                        20: 6.990455e-09, 43: 9.889851e-09,
+                        50: 9.794265e-09, 51: 7.466335e-09,
+                        60: 6.211218e-02, 61: 2.237597e-09,
+                        80: 9.829014e-09, 81: 9.144086e-09}
+# AMG-CGNR's count wanders with rounding: CG on the normal equations
+# takes ~200 iterations at 100^3, and the port takes 201 on the CPU
+# (its driver with -exec_host) and 200 on the card, where the
+# reference takes 203.  It is held within 2% (4 iterations) of the
+# reference's; tests/test_torch_krylov_breadth.py holds AMG-CGNR to the
+# reference's exact count at 13^3.  Every other id is held exactly.
+REF_IJ_SOLVER_SLACK = {5: 4}
+# the same driver in LOBPCG mode at 128^3 (-lobpcg -solver 1), whose
+# eager V-cycles take hours on the CPU; the reference's lobpcg with the
+# cycle jitted once gives the driver's output digit for digit at 10^3:
+# python tools/ij_reference_counts.py lobpcg 128
+#   LOBPCG iterations = 20 (eigenvalues 1.779180929163656e-03 and
+#   3 x 3.5580101377963e-03)
+LOBPCG_GRID = 128
+REF_LOBPCG_ITERS = 20
+# MGR-GMRES on tests/test_mgr.py's two-field system (mgr_coupled_system):
+# at n = 1024 (2,097,152 rows) on the card, and at n = 256 (131,072
+# rows, a 16th) on the card against the counts of the same solve on the
+# CPU in f64, by the port and by hypre_tpu (the same config).  Its
+# coarse AMG takes max_row_sum 1.0: with MGR's default 0.9 the coarse
+# pressure operators, diagonally dominant through the identity block,
+# stop coarsening at a 4,967-row level at n = 256 and a ~76k-row one at
+# n = 1024, whose dense LU (46.5 GiB) does not fit the card
+MGR_N, MGR_SMALL_N = 1024, 256
+MGR_AMG = AmgConfig(interp_type=6, max_row_sum=1.0)
+REF_MGR_SMALL_ITERS = 10
+PORT_MGR_SMALL_ITERS = 10
+# the round trip of the ij driver's -printsystem, -fromfile and
+# -rhsfromfile
+IO_GRID = 24
+# K2-NV's block widths: every width LOBPCG's block of 4 gives (4, 8, 12)
+# and the launch pieces (1, 2, 16; 3 = 2 + 1)
+NV_CHECK = (1, 2, 3, 4, 8, 12, 16)
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
 # tolerance of a kernel against its plain version: max |kernel - plain|
 # over max(|A| |x|), the size of the terms summed (order of summation
@@ -317,13 +397,15 @@ def wrapper_us(fn, calls: int = 1000) -> float:
 def reset_counts() -> None:
     stencil_matvec.launches = 0
     csr_spmv.launches = 0
+    csr_spmm.launches = 0
     dia_matvec.launches = 0
     btake_rows.launches = 0
 
 
 def read_counts() -> dict:
     return {"stencil_matvec": stencil_matvec.launches,
-            "csr_spmv": csr_spmv.launches, "dia_matvec": dia_matvec.launches,
+            "csr_spmv": csr_spmv.launches, "csr_spmm": csr_spmm.launches,
+            "dia_matvec": dia_matvec.launches,
             "btake_rows": btake_rows.launches}
 
 
@@ -431,6 +513,29 @@ def random_csr(n_rows, n_cols, max_row, band, rng):
     A = sp.csr_matrix((vals, (rows, cols)), shape=(n_rows, n_cols))
     A.sum_duplicates()
     return A
+
+
+def mgr_coupled_system(n):
+    """tests/test_mgr.py's two-field system, rebuilt with the port's
+    generator: [[L + I, eps I], [eps I, D]] on an n x n grid, dofs
+    interleaved (2i pressure, 2i+1 saturation), the pressure dofs the
+    coarse block."""
+    import scipy.sparse as sp
+
+    L = laplacian(n, n)
+    m = L.shape[0]
+    rng = np.random.RandomState(0)
+    D = sp.diags(1.0 + rng.rand(m))
+    eps = 0.1
+    A = sp.bmat([[L + sp.identity(m), eps * sp.identity(m)],
+                 [eps * sp.identity(m), D]]).tocsr()
+    perm = np.argsort(np.concatenate([2 * np.arange(m),
+                                      2 * np.arange(m) + 1]))
+    P = sp.identity(2 * m).tocsr()[perm]
+    A = (P @ A @ P.T).tocsr()
+    c_mask = np.zeros(2 * m, bool)
+    c_mask[0::2] = True
+    return A, c_mask
 
 
 def phase_device() -> dict:
@@ -790,6 +895,8 @@ def _kind(name: str) -> str:
         return "K1 stencil_matvec"
     if "csr_spmv_kernel" in name:
         return "K2 csr_spmv"
+    if "csr_spmm_kernel" in name:
+        return "K2-NV csr_spmm"
     if "dia_matvec_" in name:
         return "K3 dia_matvec"
     if "btake_kernel" in name:
@@ -1457,6 +1564,347 @@ def phase_dia_timing(amg, peaks, gen, per_iter) -> dict:
     return out
 
 
+def plain_matvec(op, x):
+    """A x by the plain version of op's kernel (true residuals)."""
+    if isinstance(op, DiaMatrix):
+        return dia_matvec_plain(op, x)
+    if isinstance(op, CsrMatrix):
+        return csr_spmv_plain(op, x)
+    if isinstance(op, DenseMatrix):
+        return op.vals @ x
+    return stencil_matvec_plain(op, x)
+
+
+def check_spmm(A: CsrMatrix, X, label: str) -> dict:
+    """K2-NV against its plain version (K2's plain version a column);
+    at nv = 1 also bit for bit against K2."""
+    Y = csr_spmm(A, X)
+    torch.cuda.synchronize()
+    Y_ref = csr_spmm_plain(A, X)
+    scale = csr_spmm_plain(dataclasses.replace(A, values=A.values.abs()),
+                           X.abs())
+    err, rel = rel_err(Y, Y_ref, scale)
+    if not (rel <= TOL[A.dtype] and bool(torch.isfinite(Y).all())):
+        raise AssertionError(f"csr_spmm {label} nv={X.shape[1]} {A.dtype}: "
+                             f"rel err {rel:.3e} > {TOL[A.dtype]:g}")
+    if X.shape[1] == 1 and not torch.equal(Y[:, 0], csr_spmv(A, X[:, 0])):
+        raise AssertionError(f"csr_spmm {label} nv=1 {A.dtype}: not K2's "
+                             f"result bit for bit")
+    return {"op": label, "shape": list(A.shape), "nnz": A.nnz,
+            "group": A.group, "nv": X.shape[1], "dtype": str(A.dtype),
+            "max_abs_err": err, "rel_err": rel}
+
+
+def random_csr_long_rows(rng):
+    """random_csr's 100,003 x 90,001 operator (rows of 0 to 70 nonzeros,
+    empty ones among them) with three rows of ~4,500 nonzeros put in."""
+    import scipy.sparse as sp
+
+    A = random_csr(100_003, 90_001, 70, 600, rng)
+    long = sp.random(3, 90_001, density=0.05, random_state=rng,
+                     format="csr")
+    return sp.vstack([A[:50_000], long, A[50_000:]]).tocsr()
+
+
+def phase_spmm_checks(ops, gen) -> float:
+    """K2-NV against its plain version at every width NV_CHECK, f64 and
+    f32, on each (label, CsrMatrix) of `ops`; returns the largest f64
+    error."""
+    results = []
+    for label, A in ops:
+        for dtype in (F64, torch.float32):
+            Ad = A if dtype == A.dtype else A.to(dtype)
+            for nv in NV_CHECK:
+                X = torch.randn((A.n_cols, nv), generator=gen, dtype=dtype,
+                                device="cuda")
+                results.append(check_spmm(Ad, X, label))
+                del X
+            del Ad
+    torch.cuda.synchronize()
+    reset_counts()
+    emit({"phase": "kernel_checks", "set": "csr_spmm", "kernel_names":
+          ["csr_spmm"], "n_checks": len(results),
+          "worst_rel_err": max(r["rel_err"] for r in results),
+          "checks": results})
+    return max(r["max_abs_err"] for r in results
+               if r["dtype"] == str(F64))
+
+
+def spmm_timing(A: CsrMatrix, peaks, gen) -> dict:
+    """K2-NV on (b)'s fine A at LOBPCG's block widths: both times, its
+    plain version, nv K2 launches (one a column), torch.sparse.mm and
+    the bound (A's values, indices and indptr once, X once, Y once)."""
+    crow = A.indptr.to(torch.int32)
+    lib_A = torch.sparse_csr_tensor(crow, A.indices, A.values, size=A.shape,
+                                    check_invariants=False)
+    rows = []
+    for nv in (4, 8, 12):
+        X = torch.randn((A.n_cols, nv), generator=gen, dtype=A.dtype,
+                        device="cuda")
+        cols = [X[:, k].contiguous() for k in range(nv)]
+        lib_diff = float((torch.sparse.mm(lib_A, X)
+                          - csr_spmm(A, X)).abs().max())
+        n_bytes = ((A.n_rows + 1) * 8 + A.nnz * (4 + 8)
+                   + (A.n_cols + A.n_rows) * nv * 8)
+        t_b, by = bound_ms(peaks, n_bytes, 2 * A.nnz * nv, A.dtype)
+        t_k = time_ms(lambda: csr_spmm(A, X))
+        t_kk = kernel_ms(lambda: csr_spmm(A, X), "csr_spmm_kernel")
+        rows.append({
+            "op": "A (LOBPCG at 128^3)", "shape": list(A.shape),
+            "nnz": A.nnz, "group": A.group, "nv": nv, "ms": t_k,
+            "kernel_ms": t_kk,
+            "plain_ms": time_ms(lambda: csr_spmm_plain(A, X)),
+            "k2_per_column_ms": time_ms(
+                lambda: [csr_spmv(A, c) for c in cols]),
+            "library_ms": time_ms(lambda: torch.sparse.mm(lib_A, X)),
+            "library": "torch.sparse.mm on a sparse_csr tensor",
+            "library_max_abs_diff": lib_diff, "bound_ms": t_b,
+            "bound_by": by, "bytes": n_bytes, "share_of_bound": t_b / t_kk,
+            "share_of_bound_with_wrapper": t_b / t_k})
+        del X, cols
+    reset_counts()
+    emit({"phase": "kernel_timing", "kernel": "csr_spmm", "dtype": "float64",
+          "csr_spmm": rows})
+    return rows[-1]
+
+
+def ij_args(*flags):
+    return ij.build_parser().parse_args([str(f) for f in flags])
+
+
+def ij_solver_runs(amg, amg_setup_s: float) -> list:
+    """(a): every solver id of REF_IJ_SOLVER_ITERS at 100^3 through
+    drivers.ij.run, the AMG ids on one shared setup."""
+    n = IJ_GRID
+    rows = []
+    for solver in sorted(REF_IJ_SOLVER_ITERS):
+        shared = solver in ij.NEED_AMG
+        reset_counts()
+        out = ij.run(ij_args("-n", n, n, n, "-solver", solver),
+                     amg=amg if shared else None)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        reset_counts()
+        b, x = out["b"], out["x"]
+        true_relres = float(torch.linalg.vector_norm(
+            b - plain_matvec(out["op"], x)) / torch.linalg.vector_norm(b))
+        ref_it, ref_res = (REF_IJ_SOLVER_ITERS[solver],
+                           REF_IJ_SOLVER_RELRES[solver])
+        row = {"phase": "ij_solvers", "run": "a", "command":
+               f"ij -n {n} {n} {n} -solver {solver}",
+               "solver": ij.SOLVER_NAMES.get(solver, "Schwarz-PCG"),
+               "dtype": "float64", "rows": out["n"],
+               "iters": out["iters"], "reference_iters": ref_it,
+               "relres": out["relres"], "reference_relres": ref_res,
+               "true_relres": true_relres,
+               "setup_s": amg_setup_s if shared else out["setup_s"],
+               "amg_setup_shared": shared,
+               "precond_setup_s": out.get("precond_setup_s"),
+               "solve_s": out["solve_s"],
+               "per_iter_ms": out["solve_s"] / max(out["iters"], 1) * 1e3,
+               "level_formats": out["level_formats"], "launches": launches}
+        if solver == 20:
+            row.update(dscg_iters=out["dscg_iters"],
+                       pcg_iters=out["pcg_iters"])
+        emit(row)
+        rows.append(row)
+        if not bool(torch.isfinite(x).all()) or x.shape != (out["n"],):
+            raise AssertionError(f"ij -solver {solver}: x not finite or "
+                                 f"misshapen")
+        if abs(out["iters"] - ref_it) > REF_IJ_SOLVER_SLACK.get(solver, 0):
+            raise AssertionError(f"ij -solver {solver}: {out['iters']} "
+                                 f"iterations, the reference's {ref_it}")
+        if ref_res > 1e-8:
+            # unconverged at -max_iter in the reference too: the same
+            # residual, by runtest's rule
+            if abs(out["relres"] - ref_res) > 1e-3 * ref_res:
+                raise AssertionError(f"ij -solver {solver}: relres "
+                                     f"{out['relres']:e}, the reference's "
+                                     f"{ref_res:e}")
+        elif out["relres"] > 1e-8 or true_relres > 1e-7:
+            raise AssertionError(f"ij -solver {solver}: relres "
+                                 f"{out['relres']:e}, true {true_relres:e}")
+        if launches["dia_matvec"] == 0:
+            raise AssertionError(f"ij -solver {solver}: dia_matvec was not "
+                                 f"launched")
+        if (shared or solver in (8, 18, 43)) and launches["csr_spmv"] == 0:
+            raise AssertionError(f"ij -solver {solver}: csr_spmv was not "
+                                 f"launched")
+        del out, b, x
+    return rows
+
+
+def lobpcg_run() -> dict:
+    """(b): ij -lobpcg -solver 1 at 128^3, A CSR (past the DIA limit), so
+    the block products run K2-NV."""
+    n = LOBPCG_GRID
+    reset_counts()
+    out = ij.run(ij_args("-n", n, n, n, "-lobpcg", "-solver", 1))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    reset_counts()
+    lam = np.asarray(out["eigenvalues"], dtype=np.float64)
+    # the unscaled Dirichlet 7-pt Laplacian: sum over the axes of
+    # 2 (1 - cos(k pi / (n + 1)))
+    mode = [2 * (1 - np.cos(k * np.pi / (n + 1))) for k in (1, 2)]
+    exact = np.array([3 * mode[0]] + [mode[1] + 2 * mode[0]] * 3)
+    rel = np.abs(lam - exact) / exact
+    row = {"phase": "ij_solvers", "run": "b", "command":
+           f"ij -n {n} {n} {n} -lobpcg -solver 1", "dtype": "float64",
+           "rows": out["n"], "op": type(out["op"]).__name__,
+           "levels": out["amg"].level_sizes, "iters": out["iters"],
+           "reference_iters": REF_LOBPCG_ITERS,
+           "eigenvalues": lam.tolist(), "analytic": exact.tolist(),
+           "eigenvalue_rel_err": rel.tolist(),
+           "resnorms": np.asarray(out["resnorms"]).tolist(),
+           "setup_s": out["setup_s"], "solve_s": out["solve_s"],
+           "launches": launches}
+    emit(row)
+    if not isinstance(out["op"], CsrMatrix):
+        raise AssertionError("LOBPCG at 128^3: A is not CSR")
+    if launches["csr_spmm"] == 0:
+        raise AssertionError("LOBPCG at 128^3: csr_spmm was not launched")
+    if out["iters"] != REF_LOBPCG_ITERS:
+        raise AssertionError(f"LOBPCG: {out['iters']} iterations, the "
+                             f"reference's {REF_LOBPCG_ITERS}")
+    if rel.max() > 1e-6 or not np.all(np.isfinite(out["resnorms"])) \
+            or max(out["resnorms"]) >= 1e-6:
+        raise AssertionError(f"LOBPCG: eigenvalues {lam} against "
+                             f"{exact}, resnorms {out['resnorms']}")
+    return {"out": out, "row": row}
+
+
+def mgr_runs() -> list:
+    """(c): MGR-GMRES (MGR(MgrConfig(amg=MGR_AMG)).setup(A, c_mask), gmres
+    tol 1e-8) on the two-field system at n = 256 and 1024."""
+    from hypre_tpu_torch.ops.formats import sparse_op_from_scipy
+    from hypre_tpu_torch.solvers import MGR, MgrConfig, gmres
+
+    rows = []
+    for n in (MGR_SMALL_N, MGR_N):
+        A, c_mask = mgr_coupled_system(n)
+        b = torch.ones(A.shape[0], dtype=F64, device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        op = sparse_op_from_scipy(A)
+        mgr = MGR(MgrConfig(amg=MGR_AMG)).setup(A, c_mask)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = gmres(op, b, M=mgr.precondition, tol=1e-8, max_iter=200)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches = read_counts()
+        reset_counts()
+        true_relres = float(torch.linalg.vector_norm(
+            b - plain_matvec(op, res.x)) / torch.linalg.vector_norm(b))
+        row = {"phase": "ij_solvers", "run": "c",
+               "problem": f"tests/test_mgr.py coupled_system({n})",
+               "dtype": "float64", "rows": A.shape[0], "nnz": A.nnz,
+               "op": type(op).__name__, "mgr_levels": mgr.level_sizes,
+               "amg_levels": mgr.amg_h.level_sizes, "iters": res.iters,
+               "relres": res.relres, "true_relres": true_relres,
+               "setup_s": setup_s, "solve_s": solve_s, "launches": launches}
+        if n == MGR_SMALL_N:
+            row.update(port_cpu_iters=PORT_MGR_SMALL_ITERS,
+                       reference_iters=REF_MGR_SMALL_ITERS)
+        emit(row)
+        rows.append(row)
+        if true_relres > 1e-8 or res.relres > 1e-8:
+            raise AssertionError(f"MGR-GMRES n={n}: true relres "
+                                 f"{true_relres:.3e}")
+        if n == MGR_SMALL_N and not (res.iters == PORT_MGR_SMALL_ITERS
+                                     == REF_MGR_SMALL_ITERS):
+            raise AssertionError(f"MGR-GMRES n={n}: {res.iters} iterations, "
+                                 f"the CPU's {PORT_MGR_SMALL_ITERS}, the "
+                                 f"reference's {REF_MGR_SMALL_ITERS}")
+        del A, op, mgr, res, b
+    return rows
+
+
+def io_round_trip() -> dict:
+    """(d): -printsystem at 24^3 in a temporary directory, then
+    -fromfile/-rhsfromfile of what it wrote: the same iterations."""
+    import os
+    import tempfile
+
+    n = IO_GRID
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            gen_run = ij.run(ij_args("-n", n, n, n, "-solver", 1, "-rhsrand",
+                                     "-printsystem"))
+            sizes = {f: os.path.getsize(f) for f in ("IJ.out.A", "IJ.out.b")}
+            back = ij.run(ij_args("-fromfile", "IJ.out.A", "-rhsfromfile",
+                                  "IJ.out.b", "-solver", 1))
+        finally:
+            os.chdir(cwd)
+    row = {"phase": "ij_solvers", "run": "d", "grid": [n, n, n],
+           "file_bytes": sizes, "iters_generated": gen_run["iters"],
+           "iters_read_back": back["iters"], "relres_generated":
+           gen_run["relres"], "relres_read_back": back["relres"],
+           "rows_read_back": back["n"], "nnz_read_back": back["nnz"]}
+    emit(row)
+    if back["iters"] != gen_run["iters"] or back["n"] != n ** 3 \
+            or back["relres"] > 1e-8:
+        raise AssertionError("ij I/O round trip: the read-back solve "
+                             "differs from the generated one")
+    return row
+
+
+def profile_lobpcg_step(out) -> None:
+    """One LOBPCG step's work of (b) under the profiler: the block
+    product of a 12-wide S (K2-NV) and the preconditioner on 4
+    columns."""
+    op, amg = out["op"], out["amg"]
+    S = torch.ones((op.n_cols, 12), dtype=F64, device="cuda")
+    r = torch.ones(op.n_rows, dtype=F64, device="cuda")
+
+    def run():
+        matmat(op, S)
+        for _ in range(4):
+            amg.precondition(r)
+        return {}
+
+    phase_profile("ij -lobpcg -solver 1 at 128^3", run,
+                  "one A S (nv = 12) and four V-cycles")
+
+
+def phase_ij_solvers(gen, peaks) -> dict:
+    """The ij driver's remaining solvers on the card: (a) every solver id
+    at 100^3, (b) LOBPCG at 128^3 on K2-NV, (c) MGR-GMRES at ~2M rows,
+    (d) the -printsystem/-fromfile/-rhsfromfile round trip; then K2-NV
+    against its plain version on (b)'s A, the coarse operators of the
+    100^3 hierarchy and a random CSR with empty and long rows, and its
+    timing at (b)'s shape."""
+    set_config(Config(real_dtype=F64, device="cuda"))
+    n = IJ_GRID
+    base = ij_args("-n", n, n, n)
+    A, _ = ij.build_problem(base)
+    t0 = time.perf_counter()
+    amg = BoomerAMG(ij.amg_config(base)).setup(A)
+    torch.cuda.synchronize()
+    amg_setup_s = time.perf_counter() - t0
+    del A
+    a_rows = ij_solver_runs(amg, amg_setup_s)
+    lob = lobpcg_run()
+    profile_lobpcg_step(lob["out"])
+    fine = lob["out"]["op"]
+    spmm_err = phase_spmm_checks(
+        [("A (LOBPCG at 128^3)", fine)] + hierarchy_ops(amg)
+        + [("random, empty and long rows", csr_from_scipy(
+            random_csr_long_rows(np.random.default_rng(9)), F64,
+            torch.device("cuda")))], gen)
+    timing = spmm_timing(fine, peaks, gen)
+    del amg, lob["out"], fine
+    torch.cuda.empty_cache()
+    c_rows = mgr_runs()
+    d_row = io_round_trip()
+    return {"a": a_rows, "b": lob["row"], "c": c_rows, "d": d_row,
+            "spmm_err": spmm_err, "spmm_timing": timing}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1501,6 +1949,7 @@ def main() -> int:
     del ij_runs["a"]["out"], ij_runs["b"]["out"]
     torch.cuda.empty_cache()
     breadth = phase_amg_breadth(gen)
+    solvers = phase_ij_solvers(gen, card["peaks"])
     out22 = {f"launches_out22_{tag}_{when}": breadth[tag][f"launches_{when}"]
              for tag in ("a", "b") for when in ("setup", "solves")}
     kernels = []
@@ -1533,8 +1982,13 @@ def main() -> int:
              max(timing["btake_rows"]["max_abs_err"],
                  breadth["errs"]["btake_rows"]),
              device_path["launches"]["btake_rows"],
-             {"launches_device_path": device_path["launches"]["btake_rows"]})):
-        t = timing[name]
+             {"launches_device_path": device_path["launches"]["btake_rows"]}),
+            # K2-NV: LOBPCG's block products, the ij_solvers (b) run
+            ("csr_spmm", "hypre_tpu_torch/csrc/csr_spmv.cu",
+             "hypre_tpu/ops/formats.py:238", solvers["spmm_err"],
+             solvers["b"]["launches"]["csr_spmm"],
+             {"timed_nv": solvers["spmm_timing"]["nv"]})):
+        t = timing[name] if name in timing else solvers["spmm_timing"]
         row = {
             "name": name, "route": "cuda", "source": route_src,
             "replaces": replaces, "launches": launches,
@@ -1545,7 +1999,7 @@ def main() -> int:
         if "per_pcg_iter" in t:
             row["launches_per_pcg_iter"] = t["per_pcg_iter"]
         row.update(other)
-        if name != "dia_matvec":
+        if name not in ("dia_matvec", "csr_spmm"):
             row.update({k: v[name] for k, v in out22.items()})
         kernels.append(row)
     emit({"kernels": kernels})

@@ -19,10 +19,14 @@ gen      — problem generators (Laplacians)
 setup    — host AMG setup: strength, PMIS/HMIS, direct and ext+i
            interpolation, l1 norms; device_amg: the same on the card
 csrc     — host OpenMP setup kernels and the CUDA kernels
-ops      — solve-phase operators (stencil, CSR, dense) and the device
-           setup's gather (btake)
-solvers  — BoomerAMG (V-cycle) and PCG
-convert  — carries a hypre_tpu hierarchy (as numpy arrays) across
+ops      — solve-phase operators (stencil, DIA, CSR, dense), the block
+           product matmat, and the device setup's gather (btake)
+solvers  — BoomerAMG; PCG, GMRES, FlexGMRES, LGMRES, COGMRES, BiCGSTAB,
+           CGNR; LOBPCG; the hybrid solver; FSAI, ParaSails, ILU,
+           Schwarz and MGR preconditioners
+drivers  — hypre's ij driver; testing — its golden harness
+ij, mmio — IJ assembly and Matrix Market I/O (numpy)
+convert  — carries hypre_tpu state (as numpy arrays) across
 """
 
 __version__ = "0.1.0"

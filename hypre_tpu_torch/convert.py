@@ -28,6 +28,12 @@ Each operator is given as a dict with a ``kind`` key ("stencil",
 ``dell_from_numpy`` carries an operator of the reference's device setup
 (a ``DEll``: slot-major ``cols``/``vals``) across unchanged, so the
 port's device-setup stages can be fed the reference's own inputs.
+
+``fsai_from_numpy``, ``parasails_from_numpy``, ``ilu_from_numpy`` and
+``schwarz_from_numpy`` build the port's preconditioners from the
+reference's set-up state (FSAI's G, ParaSails' M, ILU's L, U and pivots,
+Schwarz's block inverses), so an apply can be compared from identical
+state.
 """
 from __future__ import annotations
 
@@ -176,3 +182,58 @@ def hierarchy_from_numpy(levels, c_lu, c_piv, relax_weight: float = 1.0,
         c_piv=lu_pivots_from_jax(c_piv).to(device),
         relax_weight=relax_weight, num_sweeps=num_sweeps,
         relax_type=relax_type)
+
+
+def fsai_from_numpy(G: sp.csr_matrix, config=None):
+    """The port's FSAI with the reference's G (its ``_G_scipy``)."""
+    from hypre_tpu_torch.ops.formats import sparse_op_from_scipy
+    from hypre_tpu_torch.solvers.fsai import FSAI
+
+    out = FSAI(config)
+    G = sp.csr_matrix(G)
+    out.G = sparse_op_from_scipy(G, prefer_dia=False)
+    out.Gt = sparse_op_from_scipy(G.T.tocsr(), prefer_dia=False)
+    out._G_scipy = G
+    return out
+
+
+def parasails_from_numpy(M: sp.csr_matrix | None = None,
+                         G: sp.csr_matrix | None = None, config=None):
+    """The port's ParaSails with the reference's M (nonsymmetric mode,
+    its ``_M_scipy``) or, in symmetric mode, its FSAI delegate's G."""
+    from hypre_tpu_torch.ops.formats import sparse_op_from_scipy
+    from hypre_tpu_torch.solvers.parasails import ParaSails
+
+    out = ParaSails(config)
+    if G is not None:
+        out._fsai = fsai_from_numpy(G)
+    else:
+        out._M_scipy = sp.csr_matrix(M)
+        out.M = sparse_op_from_scipy(out._M_scipy, prefer_dia=False)
+    return out
+
+
+def ilu_from_numpy(L: sp.csr_matrix, udiag, U: sp.csr_matrix, config=None):
+    """The port's ILU (types 0/1) with the reference's factors: strict
+    lower L, the pivots udiag and strict upper U (its ``_LU_scipy``)."""
+    from hypre_tpu_torch.solvers.ilu import ILU
+
+    out = ILU(config)
+    ud = np.asarray(udiag, dtype=np.float64)
+    out._put_factors(sp.csr_matrix(L), ud, sp.csr_matrix(U))
+    out._LU_scipy = (L, ud, U)
+    return out
+
+
+def schwarz_from_numpy(block_inv, starts, n: int, config=None, A=None):
+    """The port's Schwarz with the reference's block inverses
+    (np.asarray of ``block_inv``) and block starts; A (scipy) for the
+    multiplicative variants."""
+    from hypre_tpu_torch.ops.formats import sparse_op_from_scipy
+    from hypre_tpu_torch.solvers.schwarz import Schwarz
+
+    out = Schwarz(config)
+    out._set_blocks(np.array(block_inv), np.array(starts), n)
+    if A is not None:
+        out._Aop = sparse_op_from_scipy(sp.csr_matrix(A), prefer_dia=False)
+    return out

@@ -127,12 +127,27 @@ def load():
             _i64p, _i32p, _f64p]
         lib.gs_wavefronts.argtypes = [
             ctypes.c_int64, ctypes.c_int32, _i64p, _i32p, _i32p]
+        lib.ilu_factor.argtypes = [
+            ctypes.c_int64, _i64p, _i32p, _f64p,
+            ctypes.c_int32, ctypes.c_double, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32,
+            _i64p, _i32p, _f64p, _i64p, _i32p, _f64p]
+        lib.ilu_refactor.argtypes = [
+            ctypes.c_int64, _i64p, _i32p, _f64p,
+            _i64p, _i32p, _i64p, _i32p,
+            _f64p, _f64p, _f64p]
+        lib.batched_lu_solve.argtypes = [
+            ctypes.c_int64, ctypes.c_int32, _f64p, _f64p, _i32p,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.csr_lookup.argtypes = [
+            ctypes.c_int64, _i64p, _i32p, _f64p, _i64p, _i64p, _f64p]
         for fn in ("rs_first_pass", "strength_mask", "pmis",
                    "direct_interp", "extpi_interp", "truncate_interp",
                    "spgemm", "csr_transpose", "stencil_csr",
                    "mask_to_csr", "l1_norms", "pmis_measure",
                    "gs_wavefronts", "cljp", "rs_second_pass",
-                   "lr_interp"):
+                   "lr_interp", "ilu_factor", "ilu_refactor",
+                   "batched_lu_solve", "csr_lookup"):
             getattr(lib, fn).restype = None
         _lib = lib
         return lib
@@ -481,3 +496,128 @@ def gs_wavefronts(A, backward: bool = False):
     lib.gs_wavefronts(n, int(backward), _p(indptr, _i64p),
                       _p(indices, _i32p), _p(depth, _i32p))
     return depth
+
+
+def batched_lu_solve(mats, rhs, getrf_ptr: int, trsm_ptr: int):
+    """Solve mats[b] x[b] = rhs[b] for a (batch, k, k) stack: LAPACK
+    getrf, the row swaps, BLAS trsm (unit lower, then upper) on each,
+    through the given routine pointers (setup/lapack.py)."""
+    lib = load()
+    mats = np.ascontiguousarray(mats, dtype=np.float64)
+    x = np.array(rhs, dtype=np.float64, order="C", copy=True)
+    batch, k = x.shape
+    if mats.shape != (batch, k, k):
+        raise ValueError(f"batched_lu_solve: mats {mats.shape} and rhs "
+                         f"{x.shape} do not match")
+    info = np.zeros(batch, dtype=np.int32)
+    lib.batched_lu_solve(batch, k, _p(mats, _f64p), _p(x, _f64p),
+                         _p(info, _i32p), getrf_ptr, trsm_ptr)
+    return x, info
+
+
+def csr_lookup(A, rows, cols):
+    """A[rows[q], cols[q]] for each query (0 where A holds no entry);
+    A is a canonical scipy CSR (sorted columns, no duplicates)."""
+    lib = load()
+    n = A.shape[0]
+    indptr, indices, data = _csr_arrays(A)
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    if rows.shape != cols.shape or (rows.size and (
+            rows.min() < 0 or rows.max() >= n)):
+        raise ValueError("csr_lookup: rows out of range or shapes differ")
+    out = np.empty(rows.shape, dtype=np.float64)
+    lib.csr_lookup(rows.size, _p(indptr, _i64p), _p(indices, _i32p),
+                   _p(data, _f64p), _p(rows, _i64p), _p(cols, _i64p),
+                   _p(out, _f64p))
+    return out
+
+
+_ilu_lock = threading.Lock()
+
+
+def ilu_factor(A, fill_k: int = 0, drop_tol: float = 0.0,
+               max_keep: int = 1000, is_ilut: bool = False):
+    """ILU(k) / ILUT factorization of CSR A (ref: src/parcsr_ls/
+    par_ilu_setup.c hypre_ILUSetupILUK / hypre_ILUSetupILUT).
+
+    Returns (L, udiag, U): L strict-lower CSR (unit diagonal implied),
+    udiag the pivot array, U strict-upper CSR."""
+    import scipy.sparse as sp
+
+    lib = load()
+    A = A.tocsr()
+    A.sort_indices()
+    n = A.shape[0]
+    indptr, indices, data = _csr_arrays(A)
+    l_indptr = np.zeros(n + 1, dtype=np.int64)
+    u_indptr = np.zeros(n + 1, dtype=np.int64)
+    with _ilu_lock:
+        lib.ilu_factor(n, _p(indptr, _i64p), _p(indices, _i32p),
+                       _p(data, _f64p), fill_k, drop_tol, max_keep,
+                       1 if is_ilut else 0, 0,
+                       _p(l_indptr, _i64p), _i32p(), _f64p(),
+                       _p(u_indptr, _i64p), _i32p(), _f64p())
+        l_nnz = int(l_indptr[n])
+        u_nnz = int(u_indptr[n])
+        l_indices = np.zeros(l_nnz, dtype=np.int32)
+        l_data = np.zeros(l_nnz, dtype=np.float64)
+        u_indices = np.zeros(u_nnz, dtype=np.int32)
+        u_data = np.zeros(u_nnz, dtype=np.float64)
+        lib.ilu_factor(n, _p(indptr, _i64p), _p(indices, _i32p),
+                       _p(data, _f64p), fill_k, drop_tol, max_keep,
+                       1 if is_ilut else 0, 1,
+                       _p(l_indptr, _i64p), _p(l_indices, _i32p),
+                       _p(l_data, _f64p), _p(u_indptr, _i64p),
+                       _p(u_indices, _i32p), _p(u_data, _f64p))
+    L = sp.csr_matrix((l_data, l_indices, l_indptr), shape=(n, n))
+    # U rows store the pivot first, then the sorted strict upper part
+    udiag = u_data[u_indptr[:-1]].copy()
+    keep = np.ones(u_nnz, dtype=bool)
+    keep[u_indptr[:-1]] = False
+    su_indptr = (u_indptr - np.arange(n + 1)).astype(np.int64)
+    U = sp.csr_matrix((u_data[keep], u_indices[keep], su_indptr),
+                      shape=(n, n))
+    return L, udiag, U
+
+
+def ilu_refactor(A, L, U):
+    """Level-scheduled PARALLEL numeric ILU factorization on the fixed
+    pattern (L strict-lower, U strict-upper, both column-sorted) —
+    Euclid's parallel-elimination design point (ref: src/
+    distributed_ls/Euclid/Euclid_dh.c:127) and hypre's setup-reuse.
+    Returns (L', udiag', U') with identical patterns.  With
+    L/U = tril/triu(A) this IS a parallel exact ILU(0) (bit-identical
+    to the serial factorization).  On an ILU(k>0) pattern it computes
+    the STATIC-PATTERN factorization: dropped fill intermediates do
+    not participate (Saad's ILU(k) lets them act within their own
+    row), so values can differ slightly from a fresh ILU(k) — the
+    standard behavior of pattern-reusing refactorization."""
+    import scipy.sparse as sp
+
+    lib = load()
+    A = A.tocsr()
+    A.sort_indices()
+    n = A.shape[0]
+    L = L.tocsr()
+    L.sort_indices()
+    U = U.tocsr()
+    U.sort_indices()
+    a_indptr, a_indices, a_data = _csr_arrays(A)
+    l_indptr = L.indptr.astype(np.int64)
+    l_indices = L.indices.astype(np.int32)
+    u_indptr = U.indptr.astype(np.int64)
+    u_indices = U.indices.astype(np.int32)
+    l_data = np.zeros(L.nnz, dtype=np.float64)
+    u_data = np.zeros(U.nnz, dtype=np.float64)
+    udiag = np.zeros(n, dtype=np.float64)
+    lib.ilu_refactor(n, _p(a_indptr, _i64p), _p(a_indices, _i32p),
+                     _p(a_data, _f64p), _p(l_indptr, _i64p),
+                     _p(l_indices, _i32p), _p(u_indptr, _i64p),
+                     _p(u_indices, _i32p), _p(l_data, _f64p),
+                     _p(udiag, _f64p), _p(u_data, _f64p))
+    L2 = sp.csr_matrix((l_data, l_indices.copy(), l_indptr.copy()),
+                       shape=(n, n))
+    U2 = sp.csr_matrix((u_data, u_indices.copy(), u_indptr.copy()),
+                       shape=(n, n))
+    return L2, udiag, U2

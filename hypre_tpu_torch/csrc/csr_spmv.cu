@@ -108,6 +108,110 @@ int launch(int64_t n_rows, int group, const void* indptr,
   return (int)cudaGetLastError();
 }
 
+// K2-NV: Y = A X for a row-major block X of nv columns (ldx apart).
+//
+// Replaces the same TPU kernel vmapped over columns by
+// hypre_tpu/ops/formats.py matmat (:238), LOBPCG's block product.  It
+// keeps K2's design (G lanes a row, nonzeros in flight, a shuffle
+// inside the group) and loads each nonzero's column and value once for
+// all NV columns: the gather of X[c, 0:NV] is one contiguous run.  Each
+// lane sums its nonzeros in K2's order and the group reduces as K2
+// does, so column k of Y equals K2 on column k bit for bit.  Fewer
+// nonzeros are in flight as NV grows (U = 4, 2, 1), which keeps the
+// NV sums and U * NV gathered values in registers.  A block of another
+// width is launched as pieces of these widths (ops/spmv.py csr_spmm).
+
+template <typename T, int G, int NV>
+__global__ void __launch_bounds__(kBlock)
+csr_spmm_kernel(int64_t n_rows, const int64_t* __restrict__ indptr,
+                const int32_t* __restrict__ indices,
+                const T* __restrict__ vals, const T* __restrict__ x,
+                int64_t ldx, T* __restrict__ y, int64_t ldy) {
+  constexpr int U = NV <= 2 ? 4 : NV <= 4 ? 2 : 1;
+  const int64_t tid = (int64_t)blockIdx.x * kBlock + threadIdx.x;
+  const int64_t row = tid / G;
+  if (row >= n_rows) return;
+  const int lane = threadIdx.x & (G - 1);
+  const unsigned mask =
+      G == 32 ? 0xffffffffu
+              : (((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1)));
+  const int64_t end = indptr[row + 1];
+  T sum[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) sum[k] = T(0);
+  for (int64_t p = indptr[row] + lane; p < end; p += G * U) {
+    int32_t c[U];
+    T v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t q = p + u * G;
+      c[u] = q < end ? __ldcs(indices + q) : -1;
+      v[u] = q < end ? __ldcs(vals + q) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (c[u] >= 0) {
+        const T* xr = x + (int64_t)c[u] * ldx;
+#pragma unroll
+        for (int k = 0; k < NV; ++k) sum[k] += v[u] * __ldg(xr + k);
+      }
+  }
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      sum[k] += __shfl_down_sync(mask, sum[k], off, G);
+  if (lane == 0) {
+    T* yr = y + row * ldy;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) yr[k] = sum[k];
+  }
+}
+
+template <typename T, int G, int NV>
+void launch_nv(int64_t n_rows, const void* indptr, const void* indices,
+               const void* vals, const void* x, int64_t ldx, void* y,
+               int64_t ldy, cudaStream_t stream) {
+  const int64_t blocks = (n_rows * G + kBlock - 1) / kBlock;
+  csr_spmm_kernel<T, G, NV><<<(unsigned)blocks, kBlock, 0, stream>>>(
+      n_rows, (const int64_t*)indptr, (const int32_t*)indices,
+      (const T*)vals, (const T*)x, ldx, (T*)y, ldy);
+}
+
+template <typename T, int G>
+int launch_mm_g(int nv, int64_t n_rows, const void* indptr,
+                const void* indices, const void* vals, const void* x,
+                int64_t ldx, void* y, int64_t ldy, cudaStream_t s) {
+  switch (nv) {
+    case 1: launch_nv<T, G, 1>(n_rows, indptr, indices, vals, x, ldx, y, ldy, s); break;
+    case 2: launch_nv<T, G, 2>(n_rows, indptr, indices, vals, x, ldx, y, ldy, s); break;
+    case 4: launch_nv<T, G, 4>(n_rows, indptr, indices, vals, x, ldx, y, ldy, s); break;
+    case 8: launch_nv<T, G, 8>(n_rows, indptr, indices, vals, x, ldx, y, ldy, s); break;
+    case 12: launch_nv<T, G, 12>(n_rows, indptr, indices, vals, x, ldx, y, ldy, s); break;
+    case 16: launch_nv<T, G, 16>(n_rows, indptr, indices, vals, x, ldx, y, ldy, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_mm(int64_t n_rows, int group, int nv, const void* indptr,
+              const void* indices, const void* vals, const void* x,
+              int64_t ldx, void* y, int64_t ldy, void* stream) {
+  if (n_rows <= 0) return (int)cudaGetLastError();
+  if ((n_rows * group + kBlock - 1) / kBlock > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (group) {
+    case 2: return launch_mm_g<T, 2>(nv, n_rows, indptr, indices, vals, x, ldx, y, ldy, s);
+    case 4: return launch_mm_g<T, 4>(nv, n_rows, indptr, indices, vals, x, ldx, y, ldy, s);
+    case 8: return launch_mm_g<T, 8>(nv, n_rows, indptr, indices, vals, x, ldx, y, ldy, s);
+    case 16: return launch_mm_g<T, 16>(nv, n_rows, indptr, indices, vals, x, ldx, y, ldy, s);
+    case 32: return launch_mm_g<T, 32>(nv, n_rows, indptr, indices, vals, x, ldx, y, ldy, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -122,6 +226,20 @@ int csr_spmv_f32(int64_t n_rows, int group, const void* indptr,
                  const void* indices, const void* vals, const void* x,
                  void* y, void* stream) {
   return launch<float>(n_rows, group, indptr, indices, vals, x, y, stream);
+}
+
+int csr_spmm_f64(int64_t n_rows, int group, int nv, const void* indptr,
+                 const void* indices, const void* vals, const void* x,
+                 int64_t ldx, void* y, int64_t ldy, void* stream) {
+  return launch_mm<double>(n_rows, group, nv, indptr, indices, vals, x, ldx,
+                           y, ldy, stream);
+}
+
+int csr_spmm_f32(int64_t n_rows, int group, int nv, const void* indptr,
+                 const void* indices, const void* vals, const void* x,
+                 int64_t ldx, void* y, int64_t ldy, void* stream) {
+  return launch_mm<float>(n_rows, group, nv, indptr, indices, vals, x, ldx,
+                          y, ldy, stream);
 }
 
 }  // extern "C"

@@ -5,14 +5,16 @@
 // the Ruge-Stueben passes, direct, ext+i and the long-range (classical,
 // standard, extended) interpolations, truncation, SpGEMM,
 // transpose, l1 norms, the stencil generator, the Gauss-Seidel
-// wavefront levels).  This is the port's own copy of the subset of
+// wavefront levels, the ILU(k)/ILUT factorization and its
+// level-scheduled refactorization).  This is the port's own copy of the subset of
 // hypre_tpu/csrc/setup_kernels.cpp that the port calls, kept
 // byte-for-byte in every function body so the two packages build the
 // same hierarchy bit for bit.  The reference semantics are hypre's
 // (src/parcsr_ls/par_strength.c, par_coarsen.c, par_interp.c,
-// par_lr_interp.c); every kernel but cljp and rs_second_pass (native
-// only, as in the reference) has a numpy twin in hypre_tpu_torch/setup/
-// (gs_wavefronts: ops/trisolve.py).  Built with
+// par_lr_interp.c, par_ilu_setup.c); every kernel but cljp,
+// rs_second_pass and ilu_refactor (native only, as in the reference)
+// has a numpy twin in hypre_tpu_torch/setup/ (gs_wavefronts:
+// ops/trisolve.py; ilu_factor: solvers/ilu.py).  Built with
 // g++ by csrc/build.py and loaded with ctypes.
 
 #include <algorithm>
@@ -1125,4 +1127,321 @@ void pmis_measure(int64_t n, int64_t nnz, const int32_t* indices,
   }
 }
 
+// ---------------------------------------------------------------------------
+// ILU(k) / ILUT row factorization (IKJ with dual dropping).
+// Independent implementation of the operator semantics of hypre's
+// host ILU setup (ref: src/parcsr_ls/par_ilu_setup.c:15,
+// hypre_ILUSetupILUK / hypre_ILUSetupILUT): row i is scattered into a
+// dense work array, eliminated against previous U rows in ascending
+// pivot order, then split/dropped into strict-L (unit diagonal
+// implied) and U (diagonal first kept always).
+//   is_ilut = 0: level-of-fill dropping, lev(fill) = lev(ik)+lev(kj)+1
+//               kept when <= fill_k (classic ILU(k) symbolic+numeric).
+//   is_ilut = 1: value dropping at drop_tol * avg|row| and keep the
+//               max_keep largest per L/U part (Saad's dual threshold).
+// Sequential over rows (true data dependence); stash pattern: pass 0
+// factorizes and writes both indptr arrays, pass 1 copies out.
+// ---------------------------------------------------------------------------
+namespace {
+struct IluStash {
+  std::vector<int32_t> l_ind, u_ind;
+  std::vector<double> l_val, u_val;
+  std::vector<int16_t> u_lev;  // fill levels of U entries (ILU(k))
+  std::vector<int64_t> l_ptr, u_ptr;
+};
+IluStash g_ilu;
+}  // namespace
+
+extern "C" void ilu_factor(int64_t n, const int64_t* indptr,
+                           const int32_t* indices, const double* data,
+                           int32_t fill_k, double drop_tol,
+                           int32_t max_keep, int32_t is_ilut, int32_t pass,
+                           int64_t* l_indptr, int32_t* l_indices,
+                           double* l_data, int64_t* u_indptr,
+                           int32_t* u_indices, double* u_data) {
+  if (pass == 1) {
+    std::copy(g_ilu.l_ind.begin(), g_ilu.l_ind.end(), l_indices);
+    std::copy(g_ilu.l_val.begin(), g_ilu.l_val.end(), l_data);
+    std::copy(g_ilu.u_ind.begin(), g_ilu.u_ind.end(), u_indices);
+    std::copy(g_ilu.u_val.begin(), g_ilu.u_val.end(), u_data);
+    g_ilu = IluStash();
+    return;
+  }
+  g_ilu = IluStash();
+  g_ilu.l_ptr.assign(1, 0);
+  g_ilu.u_ptr.assign(1, 0);
+
+  std::vector<double> w(n, 0.0);         // dense work row
+  std::vector<int16_t> lev(n, -1);       // fill level per work entry
+  std::vector<uint8_t> in_row(n, 0);
+  std::vector<int32_t> jw;               // pattern of current row
+  std::vector<int32_t> lpart, upart;     // split pattern scratch
+  const int16_t KMAX = 30000;
+
+  for (int64_t i = 0; i < n; ++i) {
+    jw.clear();
+    double rownorm = 0.0;
+    int64_t rownnz = indptr[i + 1] - indptr[i];
+    for (int64_t p = indptr[i]; p < indptr[i + 1]; ++p) {
+      const int32_t j = indices[p];
+      w[j] = data[p];
+      lev[j] = 0;
+      in_row[j] = 1;
+      jw.push_back(j);
+      rownorm += std::fabs(data[p]);
+    }
+    const double tau =
+        is_ilut ? drop_tol * (rownorm / std::max<int64_t>(rownnz, 1)) : 0.0;
+    if (!in_row[i]) {  // ensure a diagonal slot
+      w[i] = 0.0; lev[i] = 0; in_row[i] = 1; jw.push_back((int32_t)i);
+    }
+
+    // eliminate against previous rows, ascending pivot order (min-heap
+    // over the not-yet-processed L-part columns; fills can add new ones)
+    std::vector<int32_t> heap;
+    for (int32_t j : jw) if (j < i) heap.push_back(j);
+    std::make_heap(heap.begin(), heap.end(), std::greater<int32_t>());
+    lpart.clear();
+    while (!heap.empty()) {
+      std::pop_heap(heap.begin(), heap.end(), std::greater<int32_t>());
+      const int32_t k = heap.back();
+      heap.pop_back();
+      const int16_t lev_ik = lev[k];
+      // u_val[u_ptr[k]] is the pivot (diagonal stored first in U rows)
+      const int64_t ub = g_ilu.u_ptr[k], ue = g_ilu.u_ptr[k + 1];
+      const double piv = g_ilu.u_val[ub];
+      double lik = w[k] / piv;
+      if (is_ilut && std::fabs(lik) < tau) {  // drop small multiplier
+        w[k] = 0.0; in_row[k] = 0; lev[k] = -1;
+        continue;
+      }
+      w[k] = lik;
+      lpart.push_back(k);
+      for (int64_t p = ub + 1; p < ue; ++p) {
+        const int32_t j = g_ilu.u_ind[p];
+        const int16_t fl = is_ilut
+            ? (int16_t)0
+            : (int16_t)std::min<int32_t>(
+                  lev_ik + (int32_t)g_ilu.u_lev[p] + 1, KMAX);
+        if (!in_row[j]) {
+          if (!is_ilut && fl > fill_k) continue;  // symbolic drop
+          w[j] = -lik * g_ilu.u_val[p];
+          lev[j] = fl;
+          in_row[j] = 1;
+          jw.push_back(j);
+          if (j < i) {
+            heap.push_back(j);
+            std::push_heap(heap.begin(), heap.end(),
+                           std::greater<int32_t>());
+          }
+        } else {
+          w[j] -= lik * g_ilu.u_val[p];
+          if (!is_ilut && fl < lev[j]) lev[j] = fl;
+        }
+      }
+    }
+
+    // split + drop + store
+    upart.clear();
+    for (int32_t j : jw)
+      if (j > i && in_row[j]) upart.push_back(j);
+    if (is_ilut) {
+      auto keep_largest = [&](std::vector<int32_t>& part) {
+        // drop below tau, then keep the max_keep largest |w|
+        size_t m = 0;
+        for (size_t q = 0; q < part.size(); ++q)
+          if (std::fabs(w[part[q]]) >= tau) part[m++] = part[q];
+        part.resize(m);
+        if ((int64_t)part.size() > max_keep) {
+          std::nth_element(part.begin(), part.begin() + max_keep,
+                           part.end(), [&](int32_t a, int32_t b) {
+                             return std::fabs(w[a]) > std::fabs(w[b]);
+                           });
+          part.resize(max_keep);
+        }
+        std::sort(part.begin(), part.end());
+      };
+      keep_largest(lpart);
+      keep_largest(upart);
+    } else {
+      std::sort(lpart.begin(), lpart.end());
+      std::sort(upart.begin(), upart.end());
+    }
+    double di = in_row[i] ? w[i] : 0.0;
+    if (di == 0.0) di = (rownorm > 0.0 ? 1e-12 * rownorm : 1.0);
+    for (int32_t j : lpart) {
+      g_ilu.l_ind.push_back(j);
+      g_ilu.l_val.push_back(w[j]);
+    }
+    g_ilu.l_ptr.push_back((int64_t)g_ilu.l_ind.size());
+    g_ilu.u_ind.push_back((int32_t)i);   // diagonal first
+    g_ilu.u_val.push_back(di);
+    g_ilu.u_lev.push_back(0);
+    for (int32_t j : upart) {
+      g_ilu.u_ind.push_back(j);
+      g_ilu.u_val.push_back(w[j]);
+      g_ilu.u_lev.push_back(is_ilut ? (int16_t)0 : lev[j]);
+    }
+    g_ilu.u_ptr.push_back((int64_t)g_ilu.u_ind.size());
+
+    for (int32_t j : jw) { w[j] = 0.0; lev[j] = -1; in_row[j] = 0; }
+  }
+  std::copy(g_ilu.l_ptr.begin(), g_ilu.l_ptr.end(), l_indptr);
+  std::copy(g_ilu.u_ptr.begin(), g_ilu.u_ptr.end(), u_indptr);
+}
+
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Level-scheduled parallel numeric ILU factorization on a FIXED
+// pattern.  The parallel-elimination design point of Euclid's PILU
+// (ref: src/distributed_ls/Euclid/Euclid_dh.c:127, ilu_mpi_pilu.c):
+// the elimination dependency DAG is the L pattern, and every row of
+// one wavefront factors concurrently (OpenMP).  Doubles as hypre's
+// setup-reuse (keep the symbolic pattern, refresh values for a new A).
+// Exact: identical values to the serial IKJ factorization on the same
+// pattern.  L = strict lower (unit diag implied), U rows = strict
+// upper, udiag = pivots.  Patterns must be column-sorted.
+// ---------------------------------------------------------------------------
+extern "C" void ilu_refactor(
+    int64_t n, const int64_t* a_indptr, const int32_t* a_indices,
+    const double* a_data, const int64_t* l_indptr,
+    const int32_t* l_indices, const int64_t* u_indptr,
+    const int32_t* u_indices, double* l_data, double* udiag,
+    double* u_data) {
+  std::vector<int32_t> depth(n, 0);
+  int32_t maxd = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    int32_t d = 0;
+    for (int64_t p = l_indptr[i]; p < l_indptr[i + 1]; ++p) {
+      const int32_t j = l_indices[p];
+      if (depth[j] + 1 > d) d = depth[j] + 1;
+    }
+    depth[i] = d;
+    if (d > maxd) maxd = d;
+  }
+  // bucket rows by depth (counting sort)
+  std::vector<int64_t> lvl_ptr(maxd + 2, 0);
+  for (int64_t i = 0; i < n; ++i) ++lvl_ptr[depth[i] + 1];
+  for (int32_t d = 0; d < maxd + 1; ++d) lvl_ptr[d + 1] += lvl_ptr[d];
+  std::vector<int64_t> rows(n);
+  {
+    std::vector<int64_t> cur(lvl_ptr.begin(), lvl_ptr.end() - 1);
+    for (int64_t i = 0; i < n; ++i) rows[cur[depth[i]]++] = i;
+  }
+
+#pragma omp parallel
+  {
+    std::vector<double> w(n, 0.0);
+    std::vector<uint8_t> inpat(n, 0);
+    for (int32_t d = 0; d <= maxd; ++d) {
+#pragma omp for schedule(dynamic, 64)
+      for (int64_t idx = lvl_ptr[d]; idx < lvl_ptr[d + 1]; ++idx) {
+        const int64_t i = rows[idx];
+        // stamp the row's factor pattern
+        for (int64_t p = l_indptr[i]; p < l_indptr[i + 1]; ++p) {
+          inpat[l_indices[p]] = 1; w[l_indices[p]] = 0.0;
+        }
+        for (int64_t p = u_indptr[i]; p < u_indptr[i + 1]; ++p) {
+          inpat[u_indices[p]] = 1; w[u_indices[p]] = 0.0;
+        }
+        inpat[i] = 1; w[i] = 0.0;
+        double rownorm = 0.0;
+        for (int64_t p = a_indptr[i]; p < a_indptr[i + 1]; ++p) {
+          rownorm += std::fabs(a_data[p]);
+          if (inpat[a_indices[p]]) w[a_indices[p]] = a_data[p];
+        }
+        // eliminate in ascending pivot order (L pattern is sorted)
+        for (int64_t p = l_indptr[i]; p < l_indptr[i + 1]; ++p) {
+          const int32_t j = l_indices[p];
+          const double lij = w[j] / udiag[j];
+          w[j] = lij;
+          for (int64_t q = u_indptr[j]; q < u_indptr[j + 1]; ++q) {
+            const int32_t k = u_indices[q];
+            if (inpat[k]) w[k] -= lij * u_data[q];
+          }
+        }
+        for (int64_t p = l_indptr[i]; p < l_indptr[i + 1]; ++p)
+          l_data[p] = w[l_indices[p]];
+        double di = w[i];
+        if (di == 0.0) di = (rownorm > 0.0 ? 1e-12 * rownorm : 1.0);
+        udiag[i] = di;
+        for (int64_t p = u_indptr[i]; p < u_indptr[i + 1]; ++p)
+          u_data[p] = w[u_indices[p]];
+        // unstamp
+        for (int64_t p = l_indptr[i]; p < l_indptr[i + 1]; ++p)
+          inpat[l_indices[p]] = 0;
+        for (int64_t p = u_indptr[i]; p < u_indptr[i + 1]; ++p)
+          inpat[u_indices[p]] = 0;
+        inpat[i] = 0;
+      }
+      // implicit omp-for barrier: udiag/u_data of this level are
+      // visible before the next level reads them
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Batched dense solves for the FSAI and ParaSails setups: the port's own
+// function, not a copy.  Each system runs LAPACK's getrf, its row swaps
+// on the right-hand side, then BLAS's trsm twice (unit lower, upper),
+// through the routines' pointers taken from scipy's LAPACK: the calls,
+// in the order, that jax's CPU lowering of jnp.linalg.solve makes (lu,
+// the pivots' permutation, two triangular_solve), so the solutions are
+// the reference's bit for bit.  mats: row-major (batch, k, k), read;
+// rhs: (batch, k), overwritten by the solutions; info: getrf's.
+// ---------------------------------------------------------------------------
+typedef void (*getrf_fn)(int*, int*, double*, int*, int*, int*);
+typedef void (*trsm_fn)(char*, char*, char*, char*, int*, int*, double*,
+                        double*, int*, double*, int*);
+
+extern "C" void batched_lu_solve(int64_t batch, int32_t k,
+                                 const double* mats, double* rhs,
+                                 int32_t* info, void* getrf_p,
+                                 void* trsm_p) {
+  getrf_fn getrf = (getrf_fn)getrf_p;
+  trsm_fn trsm = (trsm_fn)trsm_p;
+  std::vector<double> a((size_t)k * k);
+  std::vector<int> ipiv(k);
+  char side = 'L', lower = 'L', upper = 'U', notrans = 'N', unit = 'U',
+       nonunit = 'N';
+  int n = k, one = 1;
+  double alpha = 1.0;
+  for (int64_t bi = 0; bi < batch; ++bi) {
+    const double* m = mats + bi * k * k;
+    for (int i = 0; i < k; ++i)
+      for (int j = 0; j < k; ++j) a[(size_t)j * k + i] = m[i * k + j];
+    int inf = 0;
+    getrf(&n, &n, a.data(), &n, ipiv.data(), &inf);
+    double* x = rhs + bi * k;
+    for (int i = 0; i < k; ++i) {
+      const int p = ipiv[i] - 1;
+      if (p != i) std::swap(x[i], x[p]);
+    }
+    trsm(&side, &lower, &notrans, &unit, &n, &one, &alpha, a.data(), &n, x,
+         &n);
+    trsm(&side, &upper, &notrans, &nonunit, &n, &one, &alpha, a.data(), &n,
+         x, &n);
+    info[bi] = inf;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Entries of a CSR matrix at query pairs (the port's own function): out[q]
+// = A[rows[q], cols[q]], 0 where A holds no entry, by a binary search in
+// the row's sorted columns, the queries in parallel.  The FSAI and
+// ParaSails setups gather their little systems with it; its numpy twin
+// is solvers/fsai.py _Lookup's sorted-key search.
+// ---------------------------------------------------------------------------
+extern "C" void csr_lookup(int64_t n_query, const int64_t* indptr,
+                           const int32_t* indices, const double* data,
+                           const int64_t* rows, const int64_t* cols,
+                           double* out) {
+#pragma omp parallel for schedule(static)
+  for (int64_t q = 0; q < n_query; ++q) {
+    const int32_t* b = indices + indptr[rows[q]];
+    const int32_t* e = indices + indptr[rows[q] + 1];
+    const int32_t* p = std::lower_bound(b, e, (int32_t)cols[q]);
+    out[q] = (p != e && *p == cols[q]) ? data[p - indices] : 0.0;
+  }
+}

@@ -8,12 +8,14 @@ generators, and the same output tail (ref: src/test/ij.c:4427-4430):
     Iterations = %d
     Final Relative Residual Norm = %e
 
-Solvers 0 (AMG), 1 (AMG-PCG), 2 (DS-PCG), 3 (AMG-GMRES), 4 (DS-GMRES),
-9 (AMG-BiCGSTAB) and 10 (DS-BiCGSTAB) run; the others, ``-lobpcg``,
-``-fromfile``, ``-rhsfromfile`` and ``-printsystem`` raise
-NotImplementedError naming their ROADMAP.md item; every AMG flag runs.
-The driver's defaults are hypre's: HMIS, ext+i (6), relax 13 (exact
-hybrid l1-GS), P_max 4.
+Every solver id and flag of the reference's driver runs (its dispatch,
+hypre_tpu/drivers/ij.py:329-485): AMG, PCG, GMRES, CGNR, BiCGSTAB,
+COGMRES, LGMRES and FlexGMRES with AMG or diagonal scaling, the
+ParaSails, FSAI, Schwarz and ILU preconditioners, the hybrid solver,
+``-lobpcg`` (eigenpairs, preconditioned per -solver), ``-fromfile``,
+``-rhsfromfile`` and ``-printsystem``; an unknown solver id raises
+ValueError.  The driver's defaults are hypre's: HMIS, ext+i (6), relax
+13 (exact hybrid l1-GS), P_max 4.
 
 It runs on the configured device (the card by default); ``-exec_host``
 runs that one call on the CPU in f64 and restores the caller's Config
@@ -22,6 +24,7 @@ prints.
 
     python -m hypre_tpu_torch.drivers.ij -n 100 100 100 -solver 1
     python -m hypre_tpu_torch.drivers.ij -n 33 33 1 -solver 3 -exec_host
+    python -m hypre_tpu_torch.drivers.ij -n 16 16 16 -lobpcg -exec_host
 """
 from __future__ import annotations
 
@@ -201,13 +204,11 @@ SOLVER_NAMES = {0: "AMG", 1: "AMG-PCG", 2: "DS-PCG", 3: "AMG-GMRES",
                 60: "DS-FlexGMRES", 61: "AMG-FlexGMRES",
                 18: "ParaSails-GMRES",
                 43: "FSAI-PCG", 80: "ILU-GMRES", 81: "ILU-PCG"}
-PORTED_SOLVERS = (0, 1, 2, 3, 4, 9, 10)
-# the reference's other solvers, by the ROADMAP.md Queue 1 item that
-# ports them
-LATER_SOLVERS = {5: 13, 6: 13, 16: 13, 17: 13, 50: 13, 51: 13, 60: 13,
-                 61: 13, 8: 15, 18: 15, 12: 15, 20: 15, 43: 15, 80: 15,
-                 81: 15}
-NEED_AMG = (0, 1, 3, 9)
+# every solver id the reference's dispatch runs (12, Schwarz-PCG, has
+# no name in its table, :335-345)
+SOLVER_IDS = (*SOLVER_NAMES, 12)
+# the solvers that set up BoomerAMG (the reference's need_amg, :330)
+NEED_AMG = (0, 1, 3, 5, 9, 16, 51, 61, 20)
 
 
 def build_problem(args):
@@ -303,18 +304,9 @@ def amg_config(args):
 
 
 def check_flags(args) -> None:
-    for flag, item in (("lobpcg", 13), ("fromfile", 17),
-                       ("rhsfromfile", 17), ("printsystem", 17)):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"ij -{flag} is not in the port yet (ROADMAP.md Queue 1, "
-                f"item {item})")
-    if args.solver in LATER_SOLVERS:
-        raise NotImplementedError(
-            f"ij -solver {args.solver} ({SOLVER_NAMES[args.solver]}) is not "
-            f"in the port yet (ROADMAP.md Queue 1, item "
-            f"{LATER_SOLVERS[args.solver]})")
-    if args.solver not in PORTED_SOLVERS:
+    """An unknown solver id raises ValueError (the reference prints and
+    returns 1)."""
+    if args.solver not in SOLVER_IDS:
         raise ValueError(f"solver id {args.solver} not implemented")
 
 
@@ -325,13 +317,20 @@ def _diag_scale(A):
     return lambda r: dinv * r
 
 
-def run(args) -> dict:
+def run(args, amg=None) -> dict:
     """One driver run on the configured device (the CPU in f64 for this
     call under -exec_host).  Returns the problem's name and size, the
-    operator ``op``, the BoomerAMG object ``amg`` (None for DS solvers),
-    the preconditioner ``M`` (amg, or the diagonal scaling), ``b``,
-    ``x``, ``iters``, ``relres``, ``setup_s``, ``solve_s`` and
-    ``level_formats`` (of the AMG hierarchy, else of op alone)."""
+    operator ``op``, the BoomerAMG object ``amg`` (None for solvers
+    without AMG), the preconditioner ``M``, ``b``, ``x``, ``iters``,
+    ``relres``, ``setup_s``, ``solve_s`` and ``level_formats`` (of the
+    AMG hierarchy, else of op alone); for -solver 20 also
+    ``dscg_iters`` and ``pcg_iters``, for the ParaSails, FSAI, Schwarz
+    and ILU ids ``precond_setup_s``; under -lobpcg ``eigenvalues`` and
+    ``resnorms``, with ``x`` the eigenvectors and ``iters`` LOBPCG's.
+
+    amg: a BoomerAMG already set up on this problem with this run's
+    AmgConfig (amg_config(args)), used in place of a new setup; its
+    setup time is then not counted in setup_s."""
     from hypre_tpu_torch.core.config import (
         Config, get_config, set_config,
     )
@@ -341,64 +340,178 @@ def run(args) -> dict:
     if args.exec_host:
         set_config(Config(real_dtype=torch.float64, device="cpu"))
     try:
-        return _run(args)
+        return _run(args, amg)
     finally:
         set_config(caller)
 
 
-def _run(args) -> dict:
+def _print_system(A, b) -> None:
+    """-printsystem: A and b in IJ format, IJ.out.A and IJ.out.b in the
+    working directory (the reference's :247-282)."""
+    from hypre_tpu_torch.ij import IJMatrix, IJVector
+
+    n = A.shape[0]
+    coo = A.tocoo()
+    ijm = IJMatrix(0, n - 1, 0, n - 1)
+    ijm.set_values(coo.row, coo.col, coo.data)
+    ijm.assemble()
+    ijm.print_to("IJ.out.A")
+    ijv = IJVector(0, n - 1)
+    ijv.set_values(np.arange(n), b)
+    ijv.assemble()
+    ijv.print_to("IJ.out.b")
+
+
+def _solve(args, op, A, amg, b, x0, out: dict):
+    """The reference's dispatch by solver id (:374-485); returns (x,
+    iters, relres, M).  For the ParaSails, FSAI, Schwarz and ILU
+    solvers, out["precond_setup_s"] is the preconditioner's setup time
+    (part of the solve phase)."""
+    from hypre_tpu_torch.core.config import synchronize
+    from hypre_tpu_torch.solvers import (
+        bicgstab, cgnr, cogmres, flexgmres, gmres, lgmres, pcg,
+    )
+
+    solver_id = args.solver
+    M = amg if solver_id in NEED_AMG else _diag_scale(A)
+    kw = {"x0": x0, "tol": args.tol, "max_iter": args.max_iter}
+    kdim = {"k_dim": args.k_dim}
+    if solver_id == 0:
+        return (*amg.solve(b, x0=x0, tol=args.tol,
+                           max_iter=args.mg_max_iter), M)
+    krylov = {1: (pcg, {}), 2: (pcg, {}), 3: (gmres, kdim),
+              4: (gmres, kdim), 5: (cgnr, {}), 6: (cgnr, {}),
+              9: (bicgstab, {}), 10: (bicgstab, {}),
+              16: (cogmres, kdim), 17: (cogmres, kdim),
+              50: (lgmres, {**kdim, "aug_dim": args.aug_dim}),
+              51: (lgmres, {**kdim, "aug_dim": args.aug_dim}),
+              60: (flexgmres, kdim), 61: (flexgmres, kdim)}
+    if solver_id in krylov:
+        fn, extra = krylov[solver_id]
+        res = fn(op, b, M=M, **kw, **extra)
+        return res.x, res.iters, res.relres, M
+    if solver_id == 20:
+        from hypre_tpu_torch.solvers.hybrid import HybridConfig, hybrid_solve
+
+        # the driver's own BoomerAMG (same AmgConfig) serves the switch;
+        # the reference sets up a second, identical one there
+        hres = hybrid_solve(A, b, HybridConfig(
+            tol=args.tol, cf_tol=args.cf_tol,
+            dscg_max_iter=args.dscg_max_iter,
+            pcg_max_iter=args.pcg_max_iter, amg=amg_config(args)),
+            amg=amg)
+        out["dscg_iters"], out["pcg_iters"] = hres.dscg_iters, hres.pcg_iters
+        return (hres.x, hres.dscg_iters + hres.pcg_iters, hres.relres,
+                amg)
+    t0 = time.perf_counter()
+    if solver_id in (80, 81):
+        from hypre_tpu_torch.solvers.ilu import ILU, IluConfig
+
+        M = ILU(IluConfig(
+            ilu_type=args.ilu_type, fill_level=args.ilu_lfil,
+            drop_tol=args.ilu_droptol,
+            max_row_nnz=args.ilu_max_row_nnz)).setup(A)
+        fn, extra = (gmres, kdim) if solver_id == 80 else (pcg, {})
+    elif solver_id in (8, 18):
+        from hypre_tpu_torch.solvers.parasails import (
+            ParaSails, ParaSailsConfig,
+        )
+
+        sym = bool(args.sai_sym) if args.sai_sym is not None \
+            else (solver_id == 8)
+        M = ParaSails(ParaSailsConfig(
+            thresh=args.sai_th, filter=args.sai_filter,
+            nlevels=args.sai_lev, sym=sym)).setup(A)
+        fn, extra = (pcg, {}) if solver_id == 8 else (gmres, kdim)
+    elif solver_id == 43:
+        from hypre_tpu_torch.solvers.fsai import FSAI, FsaiConfig
+
+        M = FSAI(FsaiConfig(
+            algo_type="adaptive" if args.fs_algo == 1 else "static",
+            max_steps=args.fs_max_steps,
+            max_step_size=args.fs_max_step_size,
+            kap_tolerance=args.fs_kap_tol)).setup(A)
+        fn, extra = pcg, {}
+    else:                                    # 12: Schwarz-PCG
+        from hypre_tpu_torch.solvers.schwarz import Schwarz, SchwarzConfig
+
+        variants = {0: "multiplicative", 2: "additive",
+                    3: "sym-multiplicative"}
+        M = Schwarz(SchwarzConfig(
+            block_size=args.sw_domain, overlap=args.sw_overlap,
+            weight=args.sw_weight,
+            variant=variants.get(args.sw_variant, "additive"))).setup(A)
+        fn, extra = pcg, {}
+    # the preconditioner's setup runs in the solve phase, as in the
+    # reference (its timer starts before the preconditioner is built)
+    synchronize(b.device)
+    out["precond_setup_s"] = time.perf_counter() - t0
+    res = fn(op, b, M=M.precondition, **kw, **extra)
+    return res.x, res.iters, res.relres, M.precondition
+
+
+def _run(args, amg) -> dict:
     from hypre_tpu_torch.core.config import as_real, get_device, synchronize
     from hypre_tpu_torch.ops.formats import sparse_op_from_scipy
-    from hypre_tpu_torch.solvers import BoomerAMG, bicgstab, gmres, pcg
+    from hypre_tpu_torch.solvers import BoomerAMG
 
     device = get_device()
-    A, name = build_problem(args)
+    if args.fromfile:
+        from hypre_tpu_torch.ij import IJMatrix
+
+        A = IJMatrix.read_from(args.fromfile).assemble()
+        name = args.fromfile
+    else:
+        A, name = build_problem(args)
     n = A.shape[0]
     if args.srand is not None:
         args.seed = args.srand
     rng = np.random.RandomState(args.seed)
-    if args.rhszero:
+    if args.rhsfromfile:
+        from hypre_tpu_torch.ij import IJVector
+
+        b = IJVector.read_from(args.rhsfromfile).assemble()
+    elif args.rhszero:
         b = np.zeros(n)
     else:
         b = rng.rand(n) if args.rhsrand else np.ones(n)
-    b = as_real(b)
     x0 = (as_real(rng.rand(n)) if args.x0rand
-          else torch.ones_like(b) if args.xisone else None)
-    cfg = amg_config(args)
+          else as_real(np.ones(n)) if args.xisone else None)
+    if args.printsystem:
+        _print_system(A, b)
+    b = as_real(b)
 
     solver_id = args.solver
-    amg = None
     t0 = time.perf_counter()
     op = sparse_op_from_scipy(A)
-    if solver_id in NEED_AMG:
-        amg = BoomerAMG(cfg).setup(A)
+    if solver_id in NEED_AMG and amg is None:
+        amg = BoomerAMG(amg_config(args)).setup(A)
+    elif solver_id not in NEED_AMG:
+        amg = None
     synchronize(device)
     setup_s = time.perf_counter() - t0
 
+    out = {"name": name, "n": n, "nnz": A.nnz, "solver": solver_id,
+           "op": op, "amg": amg, "b": b,
+           "level_formats": (amg.level_formats if amg is not None
+                             else [type(op).__name__])}
     t0 = time.perf_counter()
-    M = amg if solver_id in NEED_AMG else _diag_scale(A)
-    if solver_id == 0:
-        x, iters, relres = amg.solve(b, x0=x0, tol=args.tol,
-                                     max_iter=args.mg_max_iter)
+    if args.lobpcg:
+        from hypre_tpu_torch.solvers.lobpcg import lobpcg
+
+        X0 = rng.rand(n, args.block_size)
+        M = amg if solver_id in (0, 1, 3) else _diag_scale(A)
+        res = lobpcg(op, X0, M=M, tol=args.lobpcg_tol,
+                     max_iter=args.lobpcg_itr)
+        out.update(M=M, x=res.eigenvectors, iters=int(res.iters),
+                   eigenvalues=res.eigenvalues.cpu().numpy(),
+                   resnorms=res.resnorms.cpu().numpy(), relres=None)
     else:
-        if solver_id in (1, 2):
-            res = pcg(op, b, x0=x0, M=M, tol=args.tol,
-                      max_iter=args.max_iter)
-        elif solver_id in (3, 4):
-            res = gmres(op, b, x0=x0, M=M, tol=args.tol,
-                        max_iter=args.max_iter, k_dim=args.k_dim)
-        else:
-            res = bicgstab(op, b, x0=x0, M=M, tol=args.tol,
-                           max_iter=args.max_iter)
-        x, iters, relres = res.x, res.iters, res.relres
+        x, iters, relres, M = _solve(args, op, A, amg, b, x0, out)
+        out.update(M=M, x=x, iters=int(iters), relres=float(relres))
     synchronize(device)
-    solve_s = time.perf_counter() - t0
-    return {"name": name, "n": n, "nnz": A.nnz, "solver": solver_id,
-            "op": op, "amg": amg, "M": M, "b": b, "x": x,
-            "iters": int(iters),
-            "relres": float(relres), "setup_s": setup_s, "solve_s": solve_s,
-            "level_formats": (amg.level_formats if amg is not None
-                              else [type(op).__name__])}
+    out.update(setup_s=setup_s, solve_s=time.perf_counter() - t0)
+    return out
 
 
 def main(argv=None) -> int:
@@ -411,7 +524,16 @@ def main(argv=None) -> int:
         print(f"  AMG levels: {sizes}")
         print(f"  Operator complexity = {amg.operator_complexity:.6f}")
         print(f"  Grid complexity     = {amg.grid_complexity:.6f}")
-    print(f"Solver: {SOLVER_NAMES[out['solver']]}")
+    print(f"Solver: {SOLVER_NAMES.get(out['solver'], out['solver'])}")
+    if args.lobpcg:
+        print(f"LOBPCG iterations = {out['iters']}")
+        print("Eigenvalue lambda    Residual")
+        for lam, rn in zip(out["eigenvalues"], out["resnorms"]):
+            print(f"{lam: .15e}  {rn:.6e}")
+        return 0
+    if out["solver"] == 20:
+        print(f"PCG_Iterations = {out['pcg_iters']}")
+        print(f"DSCG_Iterations = {out['dscg_iters']}")
     print()
     print(f"Setup phase times:  wall clock time = {out['setup_s']:.6f} "
           f"seconds")

@@ -30,7 +30,7 @@ import torch
 
 from hypre_tpu_torch.ops.dia import DiaMatrix, dia_from_scipy, dia_matvec
 from hypre_tpu_torch.ops.spmv import (
-    CsrMatrix, csr_from_scipy, csr_spmv, group_size,
+    CsrMatrix, csr_from_scipy, csr_spmm, csr_spmv, group_size,
 )
 from hypre_tpu_torch.ops.stencil import StencilOp, stencil_matvec
 
@@ -78,6 +78,23 @@ def matvec(A: SparseOp, x: torch.Tensor) -> torch.Tensor:
     if isinstance(A, DenseMatrix):
         return torch.mv(A.vals, x)
     raise TypeError(f"matvec: unsupported operator {type(A).__name__}")
+
+
+def matmat(A: SparseOp, X: torch.Tensor) -> torch.Tensor:
+    """Y = A X for a block X of shape (n, nv), the counterpart of the
+    reference's matmat (formats.py:205): CSR on K2-NV (where the
+    reference vmaps its Pallas SpMV over the columns, :238), dense as
+    one torch.matmul (the reference's jnp.dot, :216-220), DIA and
+    stencil operators by their own kernel (K3, K1) column by column
+    (the reference shifts X in jnp for DIA, :221-234)."""
+    if X.dim() == 1:
+        return matvec(A, X)
+    if isinstance(A, CsrMatrix):
+        return csr_spmm(A, X.contiguous())
+    if isinstance(A, DenseMatrix):
+        return torch.matmul(A.vals, X)
+    return torch.stack([matvec(A, X[:, k].contiguous())
+                        for k in range(X.shape[1])], dim=1)
 
 
 def sparse_op_from_scipy(A, dtype: torch.dtype | None = None,

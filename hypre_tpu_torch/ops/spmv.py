@@ -10,9 +10,14 @@ gives each row a fixed group of threads sized by the mean row nnz, as
 hypre does (csr_spmv_device.c:300-306), each thread with four nonzeros
 in flight.
 
-``csr_spmv`` launches the kernel for a CUDA tensor and runs the plain
-version ``csr_spmv_plain`` for a CPU tensor; there is no fallback
-between the two.
+``csr_spmm`` is K2-NV, the same kernel over a row-major block of
+vectors (Y = A X, X of shape (n_cols, nv)): LOBPCG's block product,
+the counterpart of the Pallas SpMV that hypre_tpu/ops/formats.py
+``matmat`` (:238) vmaps over columns.
+
+``csr_spmv`` and ``csr_spmm`` launch their kernel for a CUDA tensor and
+run the plain version (``csr_spmv_plain``, ``csr_spmm_plain``) for a
+CPU tensor; there is no fallback between the two.
 """
 from __future__ import annotations
 
@@ -138,3 +143,80 @@ def csr_spmv(A: CsrMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 csr_spmv.launches = 0
+
+
+def csr_spmm_plain(A: CsrMatrix, X: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2-NV: K2's plain version on each
+    column."""
+    return torch.stack([csr_spmv_plain(A, X[:, k])
+                        for k in range(X.shape[1])], dim=1)
+
+
+_MM_KERNELS = {torch.float64: "csr_spmm_f64", torch.float32: "csr_spmm_f32"}
+# the block widths K2-NV is compiled for; a block of another width is
+# launched as pieces of these, widest first
+NV_WIDTHS = (16, 12, 8, 4, 2, 1)
+
+
+@functools.cache
+def _mm_kernel(dtype: torch.dtype):
+    """The C entry of K2-NV for `dtype`, built and loaded on first use."""
+    from hypre_tpu_torch.csrc.build import load_cuda
+
+    if dtype not in _MM_KERNELS:
+        raise HypreTpuError(f"csr_spmm: unsupported {dtype}")
+    fn = getattr(load_cuda("csr_spmv.cu"), _MM_KERNELS[dtype])
+    p = ctypes.c_void_p
+    i64 = ctypes.c_int64
+    fn.argtypes = [i64, ctypes.c_int, ctypes.c_int, p, p, p, p, i64, p,
+                   i64, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def nv_pieces(nv: int) -> list[int]:
+    """The widths of the K2-NV launches that cover nv columns."""
+    out = []
+    while nv > 0:
+        w = next(w for w in NV_WIDTHS if w <= nv)
+        out.append(w)
+        nv -= w
+    return out
+
+
+def csr_spmm(A: CsrMatrix, X: torch.Tensor) -> torch.Tensor:
+    """Y = A X for a row-major block X of shape (n_cols, nv): kernel
+    K2-NV for a CUDA tensor, the plain version for a CPU tensor.
+    ``csr_spmm.launches`` counts kernel launches (one a piece of
+    ``nv_pieces(nv)``)."""
+    if X.device.type == "cpu":
+        return csr_spmm_plain(A, X)
+    if not X.is_cuda or X.device != A.values.device:
+        raise HypreTpuError(f"csr_spmm: X on {X.device}, A on "
+                            f"{A.values.device}")
+    if X.dtype != A.dtype or X.dim() != 2 or X.shape[0] != A.n_cols \
+            or not X.is_contiguous():
+        raise HypreTpuError(
+            f"csr_spmm: X must be a contiguous {A.dtype} block of shape "
+            f"({A.n_cols}, nv), got {X.dtype} {tuple(X.shape)}")
+    fn = _mm_kernel(A.dtype)
+    nv = X.shape[1]
+    Y = torch.empty((A.n_rows, nv), dtype=A.dtype, device=X.device)
+    if A.n_rows == 0 or nv == 0:
+        return Y
+    item = X.element_size()
+    col = 0
+    for w in nv_pieces(nv):
+        err = fn(A.n_rows, A.group, w, A.indptr.data_ptr(),
+                 A.indices.data_ptr(), A.values.data_ptr(),
+                 X.data_ptr() + col * item, nv, Y.data_ptr() + col * item,
+                 nv, stream_ptr(X.device))
+        if err != 0:
+            raise HypreTpuError(f"csr_spmm kernel launch failed: "
+                                f"CUDA error {err}")
+        csr_spmm.launches += 1
+        col += w
+    return Y
+
+
+csr_spmm.launches = 0

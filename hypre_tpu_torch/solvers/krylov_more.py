@@ -1,11 +1,13 @@
-"""GMRES and BiCGSTAB on torch tensors.
+"""GMRES, FlexGMRES, LGMRES, COGMRES, BiCGSTAB and CGNR on torch tensors.
 
-Port of hypre_tpu/solvers/krylov_more.py ``gmres`` (:48-173) and
-``bicgstab`` (:308-350), hypre's template solvers (ref:
-src/krylov/gmres.c:274, bicgstab.c).  As in the port's ``pcg``, the
-loop runs on the host and launches each step's work on the device; each
-step reads one scalar (GMRES: the new Hessenberg column, BiCGSTAB: the
-residual norm), one device-to-host sync.
+Port of hypre_tpu/solvers/krylov_more.py (``gmres`` :48, ``flexgmres``
+:174, ``lgmres`` :187, ``cogmres`` :233, ``bicgstab`` :308, ``cgnr``
+:353), hypre's template solvers (ref: src/krylov/gmres.c:274,
+flexgmres.c, lgmres.c, cogmres.c, bicgstab.c, cgnr.c).  As in the
+port's ``pcg``, the loop runs on the host and launches each step's work
+on the device; each step reads one scalar (GMRES: the new Hessenberg
+column, BiCGSTAB and CGNR: the residual norm; COGMRES: its Hessenberg
+matrix once a restart), one device-to-host sync.
 
 GMRES is right-preconditioned restarted modified-Gram-Schmidt GMRES
 with Givens rotations; the restart dimension k_dim is 5 by default, as
@@ -13,7 +15,8 @@ in the ij driver (ref: src/test/ij.c:1731).  Iterations are counted per
 Arnoldi step, with the early exit on the Hessenberg residual estimate
 (gmres.c:534-576); after each restart the true residual decides whether
 another one runs.  The small Hessenberg system lives on the host in
-f64.
+f64, and so does COGMRES's least-squares step (numpy's lstsq where the
+reference calls ``jnp.linalg.lstsq``, :289).
 """
 from __future__ import annotations
 
@@ -43,13 +46,17 @@ def _start(b, x0):
 
 
 def gmres(A, b, x0=None, M=None, tol: float = 1e-8, max_iter: int = 1000,
-          k_dim: int = 5) -> KrylovResult:
+          k_dim: int = 5, _aug=None) -> KrylovResult:
     """Right-preconditioned restarted GMRES(k_dim), hypre semantics
-    (ref: src/krylov/gmres.c:274).
+    (ref: src/krylov/gmres.c:274).  Because the preconditioned basis Z
+    is kept, the same loop is the FGMRES recurrence: M may vary between
+    iterations (ref: flexgmres.c).
 
     A: a SparseOp or a callable x -> A@x; b: right-hand side; M: a
     BoomerAMG object or AmgHierarchy (one V-cycle per application), a
-    callable r -> z, or None for identity."""
+    callable r -> z, or None for identity.  _aug: a list of
+    augmentation directions minimized over, one at a time, after each
+    Arnoldi cycle (LGMRES)."""
     Aop, Mop = _ops(A, M)
     b, x, safe_b = _start(b, x0)
     m = k_dim
@@ -99,6 +106,17 @@ def gmres(A, b, x0=None, M=None, tol: float = 1e-8, max_iter: int = 1000,
             y[i] = (g[i] - H[i, i + 1:j] @ y[i + 1:]) / hii
         for i in range(j):
             x = x + float(y[i]) * Z[i]
+        if _aug is not None:
+            # line searches along the augmentation directions (a zero
+            # direction, not yet filled, moves nothing)
+            r = b - Aop(x)
+            for zk in _aug:
+                Az = Aop(zk)
+                den = torch.clamp(torch.dot(Az, Az), min=1e-300)
+                alpha = torch.where(torch.linalg.vector_norm(zk) > 0,
+                                    torch.dot(Az, r) / den, 0.0)
+                x = x + alpha * zk
+                r = r - alpha * Az
         return x, j
 
     rel = float(torch.linalg.vector_norm(b - Aop(x))) / safe_b
@@ -137,6 +155,113 @@ def bicgstab(A, b, x0=None, M=None, tol: float = 1e-8,
         x = x + alpha * ph + omega * sh
         r = s - omega * t
         rho = rho_new
+        rel = float(torch.linalg.vector_norm(r)) / safe_b
+        it += 1
+    return KrylovResult(x=x, iters=it, relres=rel)
+
+
+def flexgmres(A, b, x0=None, M=None, tol: float = 1e-8,
+              max_iter: int = 1000, k_dim: int = 5) -> KrylovResult:
+    """Flexible GMRES (ref: src/krylov/flexgmres.c): gmres keeps the
+    preconditioned basis, which is the FGMRES recurrence, so this is
+    the same loop under the reference's solver name."""
+    return gmres(A, b, x0=x0, M=M, tol=tol, max_iter=max_iter, k_dim=k_dim)
+
+
+def lgmres(A, b, x0=None, M=None, tol: float = 1e-8,
+           max_iter: int = 1000, k_dim: int = 10,
+           aug_dim: int = 2) -> KrylovResult:
+    """LGMRES (ref: src/krylov/lgmres.c): GMRES(k_dim) augmented with
+    the last aug_dim error approximations z = x_r - x_{r-1}, newest
+    first, as the reference's rolled (aug_dim, n) buffer holds them."""
+    Aop, Mop = _ops(A, M)
+    b, x, safe_b = _start(b, x0)
+    aug = [torch.zeros_like(b) for _ in range(max(int(aug_dim), 1))]
+    rel = float(torch.linalg.vector_norm(b - Aop(x))) / safe_b
+    it = 0
+    while it < max_iter and rel > tol and math.isfinite(rel):
+        res = gmres(Aop, b, x0=x, M=Mop, tol=tol, max_iter=k_dim,
+                    k_dim=k_dim, _aug=aug)
+        aug = [res.x - x] + aug[:-1]
+        x = res.x
+        rel = float(torch.linalg.vector_norm(b - Aop(x))) / safe_b
+        it += res.iters
+    return KrylovResult(x=x, iters=it, relres=rel)
+
+
+def cogmres(A, b, x0=None, M=None, tol: float = 1e-8,
+            max_iter: int = 1000, k_dim: int = 5) -> KrylovResult:
+    """COGMRES (ref: src/krylov/cogmres.c): GMRES with classical
+    Gram-Schmidt and one reorthogonalization (CGS2), so each Arnoldi
+    step is two block products with the basis.  Every cycle runs all
+    k_dim steps and counts them, as the reference's does; y solves the
+    (k_dim + 1, k_dim) least-squares problem on the host in f64."""
+    Aop, Mop = _ops(A, M)
+    b, x, safe_b = _start(b, x0)
+    m = k_dim
+
+    def cycle(x):
+        r = b - Aop(x)
+        beta = torch.linalg.vector_norm(r)
+        V = torch.zeros((m + 1, b.shape[0]), dtype=b.dtype, device=b.device)
+        V[0] = torch.where(beta > 0, r / torch.clamp(beta, min=1e-300), 0.0)
+        Z = torch.zeros((m, b.shape[0]), dtype=b.dtype, device=b.device)
+        H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
+        for j in range(m):
+            z = Mop(V[j])
+            w = Aop(z)
+            Vj = V[:j + 1]
+            h = Vj @ w
+            w = w - Vj.T @ h
+            h2 = Vj @ w
+            w = w - Vj.T @ h2
+            hj1 = torch.linalg.vector_norm(w)
+            V[j + 1] = torch.where(hj1 > 0, w / torch.clamp(hj1, min=1e-300),
+                                   0.0)
+            H[:j + 1, j] = h + h2
+            H[j + 1, j] = hj1
+            Z[j] = z
+        e1 = np.zeros(m + 1)
+        e1[0] = float(beta)
+        y = np.linalg.lstsq(H.cpu().double().numpy(), e1, rcond=None)[0]
+        return x + Z.T @ torch.as_tensor(y, dtype=b.dtype, device=b.device)
+
+    rel = float(torch.linalg.vector_norm(b - Aop(x))) / safe_b
+    it = 0
+    while it < max_iter and rel > tol and math.isfinite(rel):
+        x = cycle(x)
+        rel = float(torch.linalg.vector_norm(b - Aop(x))) / safe_b
+        it += m
+    return KrylovResult(x=x, iters=it, relres=rel)
+
+
+def cgnr(A, b, x0=None, M=None, tol: float = 1e-8, max_iter: int = 1000,
+         At=None, Mt=None) -> KrylovResult:
+    """CGNR, hypre semantics (ref: src/krylov/cgnr.c:206-434): CG on the
+    preconditioned normal equations (AC)^T (AC) y = (AC)^T b with
+    x = C y (cgnr.c:361 "q = A*C*p", the transpose at cgnr.c:380).
+
+    At / Mt: operators for A^T and C^T; they default to A and C (a
+    symmetric operator), as the reference's do."""
+    Aop, Mop = _ops(A, M)
+    Atop = Aop if At is None else _ops(At, None)[0]
+    Mtop = Mop if Mt is None else _ops(A, Mt)[1]
+    b, x, safe_b = _start(b, x0)
+    r = b - Aop(x)
+    p = Mtop(Atop(r))                      # s = C^T A^T r
+    gamma = torch.dot(p, p)
+    rel = float(torch.linalg.vector_norm(r)) / safe_b
+    it = 0
+    while it < max_iter and rel > tol and math.isfinite(rel):
+        t = Mop(p)                         # t = C p
+        w = Aop(t)                         # w = A C p
+        alpha = gamma / torch.clamp(torch.dot(w, w), min=1e-300)
+        x = x + alpha * t
+        r = r - alpha * w
+        s = Mtop(Atop(r))
+        gamma_new = torch.dot(s, s)
+        p = s + gamma_new / torch.clamp(gamma, min=1e-300) * p
+        gamma = gamma_new
         rel = float(torch.linalg.vector_norm(r)) / safe_b
         it += 1
     return KrylovResult(x=x, iters=it, relres=rel)

@@ -15,9 +15,9 @@ Golden file format (one block per job line):
     Iterations = <int>
     Final Relative Residual Norm = <float>
 
-A job outside the port (a ``struct`` line: ROADMAP.md slice 5; an ij
-solver or flag not ported yet) raises NotImplementedError when run;
-``check_suite`` checks the jobs that the port runs.
+The port's ij driver runs every solver id and flag of the reference's;
+a ``struct`` line (ROADMAP.md slice 5) raises NotImplementedError when
+run, and ``check_suite`` checks the jobs that the port runs.
 
     python -m hypre_tpu_torch.testing.runtest tests/golden/solvers.jobs
 checks the rows of a job file that the port runs against its .saved
@@ -64,8 +64,8 @@ def run_job(line: str) -> tuple[int, float]:
 
 
 def ported(line: str) -> bool:
-    """Whether the port runs this job: its driver, solver and flags are
-    all in the port (nothing is run)."""
+    """Whether the port runs this job: its driver is in the port and
+    its flags parse to a known solver (nothing is run)."""
     try:
         ij, argv = _driver(line)
         ij.check_flags(ij.build_parser().parse_args(argv))

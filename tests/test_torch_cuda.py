@@ -17,7 +17,11 @@ the z chunk, on a stencil with arms missing and on an x that is not
 instances of K3
 (by-value offsets; wide: 41 diagonals) on 0, 1 and 3 rows, row counts
 odd, 2 mod 4 and 0 mod 4 against K3's 2 (f64) or 4 (f32) rows a thread,
-and x and vals at addresses that are not 16-byte aligned."""
+and x and vals at addresses that are not 16-byte aligned.  K2-NV
+(csr_spmm) runs at every block width nv in {1, 2, 3, 4, 8, 12, 16} on a
+random CSR and on the edge-row patterns, its nv = 1 bit for bit K2's;
+LOBPCG and ILU-PCG run on the card and on the CPU at 16^3 (the same
+iterations; eigenvalues to 1e-10, x to 1e-10 relative)."""
 import dataclasses
 
 import numpy as np
@@ -36,7 +40,9 @@ from hypre_tpu_torch.ops.dia import (
     DiaMatrix, dia_from_scipy, dia_matvec, dia_matvec_plain,
 )
 from hypre_tpu_torch.ops.formats import CsrMatrix, DenseMatrix
-from hypre_tpu_torch.ops.spmv import csr_from_scipy, csr_spmv, csr_spmv_plain
+from hypre_tpu_torch.ops.spmv import (
+    csr_from_scipy, csr_spmm, csr_spmm_plain, csr_spmv, csr_spmv_plain,
+)
 from hypre_tpu_torch.setup import device_amg as dev
 from hypre_tpu_torch.ops.stencil import (
     StencilOp, kernel_instance, stencil_matvec, stencil_matvec_plain,
@@ -162,6 +168,46 @@ def test_csr_kernel_on_edge_rows(card, name, group, dtype):
         assert csr_spmv(M, x).shape == (0,)
 
 
+NV = [1, 2, 3, 4, 8, 12, 16]
+
+
+def _check_spmm(M, X, dtype):
+    Y = csr_spmm(M, X)
+    torch.cuda.synchronize()
+    assert Y.shape == (M.n_rows, X.shape[1])
+    absM = dataclasses.replace(M, values=M.values.abs())
+    _check(Y, csr_spmm_plain(M, X), csr_spmm_plain(absM, X.abs()), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nv", NV)
+def test_csr_spmm_kernel_matches_plain(card, nv, dtype):
+    rng = np.random.default_rng(nv)
+    A = sp.random(5003, 4001, density=0.01, random_state=rng, format="csr")
+    M = csr_from_scipy(A, dtype, card)
+    X = torch.as_tensor(rng.standard_normal((4001, nv)), dtype=dtype,
+                        device=card)
+    _check_spmm(M, X, dtype)
+    if nv == 1:
+        assert torch.equal(csr_spmm(M, X)[:, 0], csr_spmv(M, X[:, 0]))
+
+
+@pytest.mark.parametrize("nv", [3, 12])
+@pytest.mark.parametrize("group", [2, 32, None])
+@pytest.mark.parametrize("name", EDGE_CSR)
+def test_csr_spmm_kernel_on_edge_rows(card, name, group, nv):
+    A = edge_csr(name, seed=5)
+    M = csr_from_scipy(A, torch.float64, card)
+    if group is not None:
+        M = dataclasses.replace(M, group=group)
+    X = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (A.shape[1], nv)), dtype=torch.float64, device=card)
+    if M.n_rows:
+        _check_spmm(M, X, torch.float64)
+    else:
+        assert csr_spmm(M, X).shape == (0, nv)
+
+
 def _dia_case(name, dtype, device):
     """A DIA operator; rect and 40_offsets are built directly, with
     values on every slot, so that the masks of x's ends are tested
@@ -267,6 +313,41 @@ def test_pcg_on_card_matches_cpu(card):
         amg = BoomerAMG(AmgConfig(interp_type=6)).setup(
             laplacian(n, n, n), fine_stencil=((n, n, n), LAPLACE_7PT))
         res = pcg(amg.hierarchy.levels[0].A, np.ones(n ** 3), M=amg)
+        out[device] = (res.iters, res.x.cpu().numpy())
+    assert out["cuda"][0] == out["cpu"][0]
+    assert rel_diff(out["cuda"][1], out["cpu"][1]) <= 1e-10
+
+
+def test_lobpcg_on_card_matches_cpu(card):
+    from hypre_tpu_torch.ops import sparse_op_from_scipy
+    from hypre_tpu_torch.solvers.lobpcg import lobpcg
+
+    n = 16
+    X0 = np.random.RandomState(3).rand(n ** 3, 4)
+    out = {}
+    for device in ("cuda", "cpu"):
+        set_config(Config(device=device))
+        A = laplacian(n, n, n)
+        amg = BoomerAMG(AmgConfig(interp_type=6)).setup(A)
+        res = lobpcg(sparse_op_from_scipy(A, prefer_dia=False), X0, M=amg,
+                     tol=1e-6)
+        out[device] = (res.iters, res.eigenvalues.cpu().numpy())
+    assert out["cuda"][0] == out["cpu"][0]
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-10)
+
+
+def test_ilu_pcg_on_card_matches_cpu(card):
+    from hypre_tpu_torch.ops import sparse_op_from_scipy
+    from hypre_tpu_torch.solvers.ilu import ILU
+
+    n = 16
+    out = {}
+    for device in ("cuda", "cpu"):
+        set_config(Config(device=device))
+        A = laplacian(n, n, n)
+        M = ILU().setup(A)
+        res = pcg(sparse_op_from_scipy(A), np.ones(n ** 3),
+                  M=M.precondition)
         out[device] = (res.iters, res.x.cpu().numpy())
     assert out["cuda"][0] == out["cpu"][0]
     assert rel_diff(out["cuda"][1], out["cpu"][1]) <= 1e-10

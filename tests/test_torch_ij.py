@@ -1,14 +1,15 @@
 """The port's ij driver and golden harness.
 
-Each row of tests/golden/solvers.jobs that the port runs (lines 2-13
-and 18-19: every AMG option of the file, with solvers 1-4 and 9) goes
+Every row of tests/golden/solvers.jobs (lines 2-19: every AMG option of
+the file with solvers 1-4 and 9, and solvers 16, 51, 20 and 43) goes
 through hypre_tpu_torch.testing.runtest against
 tests/golden/solvers.saved, which is the reference's own output, by the
 reference harness's rule: equal iterations (iter_slack 0) and a residual
-no worse than the golden one by more than rtol 1e-3.  The other rows
-raise NotImplementedError.  The driver's level formats at 24^3 equal
-the reference's (CSR standing in for GST-ELL), and -exec_host leaves
-the caller's Config as it was."""
+no worse than the golden one by more than rtol 1e-3.  The driver's
+level formats at 24^3 equal the reference's (CSR standing in for
+GST-ELL), and -exec_host leaves the caller's Config as it was.  The
+driver's I/O and LOBPCG flags are held against the reference's in
+tests/test_torch_ij_io.py."""
 from pathlib import Path
 
 import numpy as np
@@ -26,9 +27,8 @@ torch.set_num_threads(1)
 GOLDEN = Path(__file__).parent / "golden"
 JOBS = runtest.read_jobs(GOLDEN / "solvers.jobs")
 SAVED = runtest.read_golden(GOLDEN / "solvers.saved")
-# solvers.jobs lines 2-13 and 18-19 (its first line is a comment)
-PORTED_ROWS = list(range(12)) + [16, 17]
-OTHER_ROWS = [i for i in range(len(JOBS)) if i not in PORTED_ROWS]
+# solvers.jobs lines 2-19 (its first line is a comment)
+PORTED_ROWS = list(range(18))
 PORT_CLASS = {"DenseMatrix": "DenseMatrix", "DiaMatrix": "DiaMatrix",
               "GstEllMatrix": "CsrMatrix", "EllMatrix": "CsrMatrix"}
 
@@ -51,20 +51,6 @@ def test_golden_row(row):
     job = JOBS[row]
     assert not runtest.compare(job, runtest.run_job(job), SAVED[row],
                                iter_slack=0, res_rtol=1e-3)
-
-
-@pytest.mark.parametrize("row", OTHER_ROWS, ids=[JOBS[i] for i in OTHER_ROWS])
-def test_other_rows_raise(row):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runtest.run_job(JOBS[row])
-
-
-@pytest.mark.parametrize("flag", [["-lobpcg"], ["-fromfile", "A.ij"],
-                                  ["-rhsfromfile", "b.ij"],
-                                  ["-printsystem"]])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ij.main(["-n", "4", "4", "4", "-exec_host", *flag])
 
 
 def test_parser_is_the_references():

@@ -10,7 +10,12 @@ empty rows, a row of 100,003 nonzeros among short ones, rows of
 thousands of nonzeros beside one-entry rows, one row and no rows
 (tolerance: 1e-13 of the largest |A| |x| term in f64, 1e-6 in f32; the
 sums run in other orders).  The kernel itself runs on these patterns in
-tests/test_torch_cuda.py."""
+tests/test_torch_cuda.py.
+
+K2-NV's plain version, csr_spmm_plain, is held on the same patterns
+against scipy's A X and, column by column, against csr_spmv_plain (bit
+for bit: it is K2's plain version on each column), at nv = 1, 3, 12,
+with the widths K2-NV launches for each nv (nv_pieces) covering it."""
 import numpy as np
 import pytest
 import torch
@@ -20,7 +25,10 @@ from hypre_tpu.ops.gstell import gstell_from_scipy, gstell_matvec_reference
 from hypre_tpu_torch import Config, set_config
 from hypre_tpu_torch.gen import laplacian
 from hypre_tpu_torch.ops.formats import csr_from_dell
-from hypre_tpu_torch.ops.spmv import csr_from_scipy, csr_spmv_plain, group_size
+from hypre_tpu_torch.ops.spmv import (
+    NV_WIDTHS, csr_from_scipy, csr_spmm_plain, csr_spmv_plain, group_size,
+    nv_pieces,
+)
 from hypre_tpu_torch.setup import device_amg as dev
 
 torch.set_num_threads(1)
@@ -82,3 +90,26 @@ def test_csr_plain_with_no_rows():
     M = csr_from_scipy(A, torch.float64, "cpu")
     y = csr_spmv_plain(M, torch.ones(A.shape[1], dtype=torch.float64))
     assert y.shape == (0,)
+
+
+@pytest.mark.parametrize("nv", [1, 3, 12])
+@pytest.mark.parametrize("name", [n for n in EDGE_CSR if n != "long_row"])
+def test_csr_spmm_plain_on_edge_rows(name, nv):
+    A = edge_csr(name, seed=5, long_len=3000)
+    X = np.random.default_rng(nv).standard_normal((A.shape[1], nv))
+    M = csr_from_scipy(A, torch.float64, "cpu")
+    Y = csr_spmm_plain(M, torch.from_numpy(X))
+    assert Y.shape == (A.shape[0], nv)
+    for k in range(nv):
+        assert torch.equal(Y[:, k], csr_spmv_plain(M, torch.from_numpy(
+            np.ascontiguousarray(X[:, k]))))
+    scale = max(float((abs(A) @ np.abs(X)).max(initial=0.0)), 1e-300)
+    assert np.abs(Y.numpy() - A @ X).max(initial=0.0) <= 1e-13 * scale
+
+
+@pytest.mark.parametrize("nv", [1, 2, 3, 4, 5, 8, 12, 13, 16, 24, 31])
+def test_nv_pieces_cover_the_block(nv):
+    pieces = nv_pieces(nv)
+    assert sum(pieces) == nv and all(w in NV_WIDTHS for w in pieces)
+    assert pieces == sorted(pieces, reverse=True)
+    assert (nv in NV_WIDTHS) == (pieces == [nv])
