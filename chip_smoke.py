@@ -132,13 +132,17 @@ Phases, each printing one JSON line:
              1.0: see MGR_AMG); (d) -printsystem at 24^3 in a
              temporary directory, read back with -fromfile and
              -rhsfromfile in the same iterations.  Launch counts are
-             zeroed just before each run and read just after.  Then
-             K2-NV (csr_spmm) against its plain version at nv in
+             zeroed just before each run and read just after; (b) may
+             launch K2-NV at most once an iteration and once more.
+             Then K2-NV (csr_spmm) against its plain version at nv in
              NV_CHECK, f64 and f32, on (b)'s A, every CSR A, P, R of the
-             100^3 hierarchy and a random CSR with empty and long rows
-             (nv = 1 bit for bit K2's), and its timing at (b)'s shape
-             (nv = 4, 8, 12) beside its plain version, nv K2 launches,
-             torch.sparse.mm and the bound.
+             100^3 hierarchy and a random CSR with empty and long rows,
+             and on column slices of a wider block (rows not 16-byte
+             aligned) of the random CSR: each column of Y bit for bit
+             K2's on that column of X, one launch a column panel.  Then
+             its timing at (b)'s shape (nv = 4, 8, 12, 16, f64 and f32)
+             beside its plain version, nv K2 launches, torch.sparse.mm
+             and the bound.
 
 Then the kernels line, nvidia-smi's line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises: nothing is
@@ -298,9 +302,10 @@ PORT_MGR_SMALL_ITERS = 10
 # the round trip of the ij driver's -printsystem, -fromfile and
 # -rhsfromfile
 IO_GRID = 24
-# K2-NV's block widths: every width LOBPCG's block of 4 gives (4, 8, 12)
-# and the launch pieces (1, 2, 16; 3 = 2 + 1)
-NV_CHECK = (1, 2, 3, 4, 8, 12, 16)
+# K2-NV's block widths: every width LOBPCG's block of 4 gives (4, 8, 12),
+# odd widths (a scalar tail, rows not 16-byte aligned: 1, 3, 5), one
+# launch's widest block in f64 (16) and two panels in f64 (17)
+NV_CHECK = (1, 2, 3, 4, 5, 8, 12, 16, 17)
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden"
 # tolerance of a kernel against its plain version: max |kernel - plain|
 # over max(|A| |x|), the size of the terms summed (order of summation
@@ -1576,10 +1581,19 @@ def plain_matvec(op, x):
 
 
 def check_spmm(A: CsrMatrix, X, label: str) -> dict:
-    """K2-NV against its plain version (K2's plain version a column);
-    at nv = 1 also bit for bit against K2."""
+    """K2-NV against its plain version (K2's plain version a column),
+    one launch a column panel, and each column of Y bit for bit K2's on
+    that column of X."""
+    from hypre_tpu_torch.ops.spmv import nv_panels
+
+    before = csr_spmm.launches
     Y = csr_spmm(A, X)
     torch.cuda.synchronize()
+    panels = len(nv_panels(X.shape[1], X.element_size()))
+    if csr_spmm.launches - before != panels:
+        raise AssertionError(f"csr_spmm {label} nv={X.shape[1]}: "
+                             f"{csr_spmm.launches - before} launches for "
+                             f"{panels} panels")
     Y_ref = csr_spmm_plain(A, X)
     scale = csr_spmm_plain(dataclasses.replace(A, values=A.values.abs()),
                            X.abs())
@@ -1587,12 +1601,14 @@ def check_spmm(A: CsrMatrix, X, label: str) -> dict:
     if not (rel <= TOL[A.dtype] and bool(torch.isfinite(Y).all())):
         raise AssertionError(f"csr_spmm {label} nv={X.shape[1]} {A.dtype}: "
                              f"rel err {rel:.3e} > {TOL[A.dtype]:g}")
-    if X.shape[1] == 1 and not torch.equal(Y[:, 0], csr_spmv(A, X[:, 0])):
-        raise AssertionError(f"csr_spmm {label} nv=1 {A.dtype}: not K2's "
-                             f"result bit for bit")
+    for k in range(X.shape[1]):
+        if not torch.equal(Y[:, k], csr_spmv(A, X[:, k].contiguous())):
+            raise AssertionError(f"csr_spmm {label} nv={X.shape[1]} "
+                                 f"{A.dtype}: column {k} is not K2's "
+                                 f"result bit for bit")
     return {"op": label, "shape": list(A.shape), "nnz": A.nnz,
             "group": A.group, "nv": X.shape[1], "dtype": str(A.dtype),
-            "max_abs_err": err, "rel_err": rel}
+            "ldx": X.stride(0), "max_abs_err": err, "rel_err": rel}
 
 
 def random_csr_long_rows(rng):
@@ -1608,16 +1624,24 @@ def random_csr_long_rows(rng):
 
 def phase_spmm_checks(ops, gen) -> float:
     """K2-NV against its plain version at every width NV_CHECK, f64 and
-    f32, on each (label, CsrMatrix) of `ops`; returns the largest f64
-    error."""
+    f32, on each (label, CsrMatrix) of `ops`, and on X = W[:, 1:1 + nv]
+    of a block W of 40 columns on the last of them (rows that start one
+    value past a 16-byte boundary: scalar loads and stores); returns
+    the largest f64 error."""
     results = []
-    for label, A in ops:
+    for i, (label, A) in enumerate(ops):
         for dtype in (F64, torch.float32):
             Ad = A if dtype == A.dtype else A.to(dtype)
             for nv in NV_CHECK:
                 X = torch.randn((A.n_cols, nv), generator=gen, dtype=dtype,
                                 device="cuda")
                 results.append(check_spmm(Ad, X, label))
+                if i == len(ops) - 1:
+                    W = torch.randn((A.n_cols, 40), generator=gen,
+                                    dtype=dtype, device="cuda")
+                    results.append(check_spmm(Ad, W[:, 1:1 + nv],
+                                              label + ", column slice"))
+                    del W
                 del X
             del Ad
     torch.cuda.synchronize()
@@ -1630,28 +1654,33 @@ def phase_spmm_checks(ops, gen) -> float:
                if r["dtype"] == str(F64))
 
 
-def spmm_timing(A: CsrMatrix, peaks, gen) -> dict:
-    """K2-NV on (b)'s fine A at LOBPCG's block widths: both times, its
+def spmm_timing(A64: CsrMatrix, peaks, gen) -> dict:
+    """K2-NV on (b)'s fine A at LOBPCG's block widths (4, 8, 12) and one
+    launch's widest block in f64 (16), f64 and f32: both times, its
     plain version, nv K2 launches (one a column), torch.sparse.mm and
-    the bound (A's values, indices and indptr once, X once, Y once)."""
-    crow = A.indptr.to(torch.int32)
-    lib_A = torch.sparse_csr_tensor(crow, A.indices, A.values, size=A.shape,
-                                    check_invariants=False)
+    the bound (A's values, indices and indptr once, X once, Y once).
+    Returns the f64 row at nv = 12, LOBPCG's width."""
     rows = []
-    for nv in (4, 8, 12):
+    for A, nv in [(A, nv) for A in (A64, A64.to(torch.float32))
+                  for nv in (4, 8, 12, 16)]:
+        lib_A = torch.sparse_csr_tensor(
+            A.indptr.to(torch.int32), A.indices, A.values, size=A.shape,
+            check_invariants=False)
         X = torch.randn((A.n_cols, nv), generator=gen, dtype=A.dtype,
                         device="cuda")
         cols = [X[:, k].contiguous() for k in range(nv)]
         lib_diff = float((torch.sparse.mm(lib_A, X)
                           - csr_spmm(A, X)).abs().max())
-        n_bytes = ((A.n_rows + 1) * 8 + A.nnz * (4 + 8)
-                   + (A.n_cols + A.n_rows) * nv * 8)
+        item = X.element_size()
+        n_bytes = ((A.n_rows + 1) * 8 + A.nnz * (4 + item)
+                   + (A.n_cols + A.n_rows) * nv * item)
         t_b, by = bound_ms(peaks, n_bytes, 2 * A.nnz * nv, A.dtype)
         t_k = time_ms(lambda: csr_spmm(A, X))
         t_kk = kernel_ms(lambda: csr_spmm(A, X), "csr_spmm_kernel")
         rows.append({
             "op": "A (LOBPCG at 128^3)", "shape": list(A.shape),
-            "nnz": A.nnz, "group": A.group, "nv": nv, "ms": t_k,
+            "nnz": A.nnz, "group": A.group, "nv": nv,
+            "dtype": str(A.dtype), "ms": t_k,
             "kernel_ms": t_kk,
             "plain_ms": time_ms(lambda: csr_spmm_plain(A, X)),
             "k2_per_column_ms": time_ms(
@@ -1661,11 +1690,10 @@ def spmm_timing(A: CsrMatrix, peaks, gen) -> dict:
             "library_max_abs_diff": lib_diff, "bound_ms": t_b,
             "bound_by": by, "bytes": n_bytes, "share_of_bound": t_b / t_kk,
             "share_of_bound_with_wrapper": t_b / t_k})
-        del X, cols
+        del X, cols, lib_A
     reset_counts()
-    emit({"phase": "kernel_timing", "kernel": "csr_spmm", "dtype": "float64",
-          "csr_spmm": rows})
-    return rows[-1]
+    emit({"phase": "kernel_timing", "kernel": "csr_spmm", "csr_spmm": rows})
+    return next(r for r in rows if r["nv"] == 12 and r["dtype"] == str(F64))
 
 
 def ij_args(*flags):
@@ -1762,8 +1790,11 @@ def lobpcg_run() -> dict:
     emit(row)
     if not isinstance(out["op"], CsrMatrix):
         raise AssertionError("LOBPCG at 128^3: A is not CSR")
-    if launches["csr_spmm"] == 0:
-        raise AssertionError("LOBPCG at 128^3: csr_spmm was not launched")
+    if not 0 < launches["csr_spmm"] <= out["iters"] + 1:
+        raise AssertionError(f"LOBPCG at 128^3: csr_spmm launched "
+                             f"{launches['csr_spmm']} times in "
+                             f"{out['iters']} iterations (one an "
+                             f"iteration and one more at most)")
     if out["iters"] != REF_LOBPCG_ITERS:
         raise AssertionError(f"LOBPCG: {out['iters']} iterations, the "
                              f"reference's {REF_LOBPCG_ITERS}")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time K1 (stencil_matvec) and K3 (dia_matvec) of one checkout of the
-port on one GPU, so that two checkouts can be compared in one run.
+"""Time K1 (stencil_matvec), K3 (dia_matvec) and K2-NV (csr_spmm) of one
+checkout of the port on one GPU, so that two checkouts can be compared
+in one run.
 
     python3 compare_kernels.py [--root DIR] [--tag NAME]
 
@@ -13,11 +14,14 @@ with the Python wrapper, and `kernel_ms`, the kernel's own device time
 the device time of a copy of x into y (`copy_kernel_ms`: the same bytes
 moved, the practical floor of a kernel that reads x and writes y); K3 on the
 100^3 7-pt operator as DIA (level 0 of the ij driver's -solver 1 run),
-f64 and f32; the wrapper's host cost a call of each (1,000 calls on a
-16^3 operator).  Each kernel's result is held against its plain version
-(chip_smoke.py's TOL), and its output's SHA-1 (`y_sha1`; the inputs come
-from a fixed seed, so two trees whose kernels agree bit for bit print
-the same).  Prints one JSON line; exits 2 without a GPU.
+f64 and f32; K2-NV on the 128^3 7-pt operator as CSR (LOBPCG's A in
+chip_smoke.py's ij_solvers (b)) at nv = 4, 8 and 12, f64 and f32, beside
+torch.sparse.mm on the same block (`library_ms`); the wrapper's host
+cost a call of K1 and K3 (1,000 calls on a 16^3 operator).  Each
+kernel's result is held against its plain version (chip_smoke.py's
+TOL), and its output's SHA-1 (`y_sha1`; the inputs come from fixed
+seeds, so two trees whose kernels agree bit for bit print the same).
+Prints one JSON line; exits 2 without a GPU.
 To compare a parent with a change, unpack the parent (`git archive`)
 into a directory that .gitignore lists and run parent, change, change,
 parent on one card, in one command.
@@ -92,6 +96,9 @@ def main() -> int:
     from hypre_tpu_torch.ops.dia import (
         dia_from_scipy, dia_matvec, dia_matvec_plain,
     )
+    from hypre_tpu_torch.ops.spmv import (
+        csr_from_scipy, csr_spmm, csr_spmm_plain,
+    )
     from hypre_tpu_torch.ops.stencil import (
         stencil_matvec, stencil_matvec_plain, stencil_op,
     )
@@ -136,6 +143,7 @@ def main() -> int:
         y = torch.empty_like(x)
         rows[-1]["copy_kernel_ms"] = cs.kernel_ms(lambda: y.copy_(x),
                                                   "Memcpy DtoD")
+        del op, abs_op, x, y
     n = cs.IJ_GRID
     A = laplacian(n, n, n)
     for dtype in (f64, f32):
@@ -145,7 +153,30 @@ def main() -> int:
         row("dia_matvec", f"{n}^3 7-pt {dtype}", dia_matvec,
             dia_matvec_plain, D, dataclasses.replace(D, vals=D.vals.abs()),
             x, (k + 2) * D.n_rows * item + k * 8, 2 * k * D.n_rows)
-    del op, abs_op, D, x, y
+        del D, x
+    n = cs.LOBPCG_GRID
+    A = laplacian(n, n, n)
+    for dtype in (f64, f32):
+        M = csr_from_scipy(A, dtype, torch.device("cuda"))
+        lib_M = torch.sparse_csr_tensor(
+            M.indptr.to(torch.int32), M.indices, M.values, size=M.shape,
+            check_invariants=False)
+        for nv in (4, 8, 12):
+            # a generator of its own, so the block is the same whatever
+            # ran before
+            X = torch.randn((M.n_cols, nv), dtype=dtype, device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(nv))
+            item = X.element_size()
+            row("csr_spmm", f"{n}^3 7-pt nv={nv} {dtype}", csr_spmm,
+                csr_spmm_plain, M,
+                dataclasses.replace(M, values=M.values.abs()), X,
+                (M.n_rows + 1) * 8 + M.nnz * (4 + item)
+                + (M.n_cols + M.n_rows) * nv * item, 2 * M.nnz * nv)
+            rows[-1]["library_ms"] = cs.time_ms(
+                lambda: torch.sparse.mm(lib_M, X))
+            del X
+        del M, lib_M
     small = stencil_op((16, 16, 16), cs.LAPLACE_7PT, dtype=f64)
     xs = torch.randn(small.n_rows, generator=gen, dtype=f64, device="cuda")
     Ds = dia_from_scipy(laplacian(16, 16, 16), f64, torch.device("cuda"))

@@ -10,10 +10,14 @@ gives each row a fixed group of threads sized by the mean row nnz, as
 hypre does (csr_spmv_device.c:300-306), each thread with four nonzeros
 in flight.
 
-``csr_spmm`` is K2-NV, the same kernel over a row-major block of
+``csr_spmm`` is K2-NV, the same product over a row-major block of
 vectors (Y = A X, X of shape (n_cols, nv)): LOBPCG's block product,
 the counterpart of the Pallas SpMV that hypre_tpu/ops/formats.py
-``matmat`` (:238) vmaps over columns.
+``matmat`` (:238) vmaps over columns.  A thread works one 16-byte
+piece of a row of Y (2 columns in f64, 4 in f32) and sums in K2's
+order, so that column k of Y is K2's result on column k bit for bit.
+One launch covers up to 16 columns in f64 and 32 in f32; a wider block
+runs as panels of that width (``nv_panels``).
 
 ``csr_spmv`` and ``csr_spmm`` launch their kernel for a CUDA tensor and
 run the plain version (``csr_spmv_plain``, ``csr_spmm_plain``) for a
@@ -153,9 +157,9 @@ def csr_spmm_plain(A: CsrMatrix, X: torch.Tensor) -> torch.Tensor:
 
 
 _MM_KERNELS = {torch.float64: "csr_spmm_f64", torch.float32: "csr_spmm_f32"}
-# the block widths K2-NV is compiled for; a block of another width is
-# launched as pieces of these, widest first
-NV_WIDTHS = (16, 12, 8, 4, 2, 1)
+# the 16-byte pieces of a row one K2-NV launch covers (csr_spmv.cu
+# kMaxPieces): 16 columns in f64, 32 in f32
+MAX_PIECES = 8
 
 
 @functools.cache
@@ -174,48 +178,50 @@ def _mm_kernel(dtype: torch.dtype):
     return fn
 
 
-def nv_pieces(nv: int) -> list[int]:
-    """The widths of the K2-NV launches that cover nv columns."""
-    out = []
-    while nv > 0:
-        w = next(w for w in NV_WIDTHS if w <= nv)
-        out.append(w)
-        nv -= w
-    return out
+def nv_panels(nv: int, item: int) -> list[tuple[int, int]]:
+    """(first column, width) of each K2-NV launch over a block of nv
+    columns of `item`-byte values: panels of MAX_PIECES 16-byte pieces,
+    the last one narrower."""
+    width = MAX_PIECES * 16 // item
+    return [(k, min(width, nv - k)) for k in range(0, nv, width)]
 
 
 def csr_spmm(A: CsrMatrix, X: torch.Tensor) -> torch.Tensor:
-    """Y = A X for a row-major block X of shape (n_cols, nv): kernel
-    K2-NV for a CUDA tensor, the plain version for a CPU tensor.
-    ``csr_spmm.launches`` counts kernel launches (one a piece of
-    ``nv_pieces(nv)``)."""
+    """Y = A X for a block X of shape (n_cols, nv) whose rows lie
+    X.stride(0) apart with unit column stride (a contiguous block, or a
+    column slice of a wider one): kernel K2-NV for a CUDA tensor, the
+    plain version for a CPU tensor.  Y is contiguous.
+    ``csr_spmm.launches`` counts kernel launches, one a panel of
+    ``nv_panels``."""
     if X.device.type == "cpu":
         return csr_spmm_plain(A, X)
     if not X.is_cuda or X.device != A.values.device:
         raise HypreTpuError(f"csr_spmm: X on {X.device}, A on "
                             f"{A.values.device}")
     if X.dtype != A.dtype or X.dim() != 2 or X.shape[0] != A.n_cols \
-            or not X.is_contiguous():
+            or (X.shape[1] > 1 and X.stride(1) != 1):
         raise HypreTpuError(
-            f"csr_spmm: X must be a contiguous {A.dtype} block of shape "
-            f"({A.n_cols}, nv), got {X.dtype} {tuple(X.shape)}")
+            f"csr_spmm: X must be a {A.dtype} block of shape "
+            f"({A.n_cols}, nv) with unit column stride, got {X.dtype} "
+            f"{tuple(X.shape)} strides {X.stride()}")
     fn = _mm_kernel(A.dtype)
     nv = X.shape[1]
     Y = torch.empty((A.n_rows, nv), dtype=A.dtype, device=X.device)
     if A.n_rows == 0 or nv == 0:
         return Y
     item = X.element_size()
-    col = 0
-    for w in nv_pieces(nv):
-        err = fn(A.n_rows, A.group, w, A.indptr.data_ptr(),
+    ldx = X.stride(0) if X.shape[0] > 1 else nv
+    for col, width in nv_panels(nv, item):
+        err = fn(A.n_rows, A.group, width, A.indptr.data_ptr(),
                  A.indices.data_ptr(), A.values.data_ptr(),
-                 X.data_ptr() + col * item, nv, Y.data_ptr() + col * item,
+                 X.data_ptr() + col * item, ldx, Y.data_ptr() + col * item,
                  nv, stream_ptr(X.device))
         if err != 0:
-            raise HypreTpuError(f"csr_spmm kernel launch failed: "
-                                f"CUDA error {err}")
+            raise HypreTpuError(
+                f"csr_spmm kernel launch failed on columns {col}:"
+                f"{col + width} of {nv} ({A.dtype}, group {A.group}): "
+                f"CUDA error {err}")
         csr_spmm.launches += 1
-        col += w
     return Y
 
 

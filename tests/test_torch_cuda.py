@@ -18,8 +18,10 @@ instances of K3
 (by-value offsets; wide: 41 diagonals) on 0, 1 and 3 rows, row counts
 odd, 2 mod 4 and 0 mod 4 against K3's 2 (f64) or 4 (f32) rows a thread,
 and x and vals at addresses that are not 16-byte aligned.  K2-NV
-(csr_spmm) runs at every block width nv in {1, 2, 3, 4, 8, 12, 16} on a
-random CSR and on the edge-row patterns, its nv = 1 bit for bit K2's;
+(csr_spmm) runs at every block width nv from 1 to 16 and at 17, 24 and
+32 (two panels in f64) on a random CSR, on X given as a column slice of
+a wider block (rows not 16-byte aligned) and on the edge-row patterns,
+each column of Y bit for bit K2's on that column of X;
 LOBPCG and ILU-PCG run on the card and on the CPU at 16^3 (the same
 iterations; eigenvalues to 1e-10, x to 1e-10 relative)."""
 import dataclasses
@@ -34,6 +36,7 @@ from torch_port_helpers import (
 )
 
 from hypre_tpu_torch import Config, set_config
+from hypre_tpu_torch.core.errors import HypreTpuError
 from hypre_tpu_torch.gen import laplacian
 from hypre_tpu_torch.ops.btake import btake_rows, btake_rows_plain
 from hypre_tpu_torch.ops.dia import (
@@ -42,6 +45,7 @@ from hypre_tpu_torch.ops.dia import (
 from hypre_tpu_torch.ops.formats import CsrMatrix, DenseMatrix
 from hypre_tpu_torch.ops.spmv import (
     csr_from_scipy, csr_spmm, csr_spmm_plain, csr_spmv, csr_spmv_plain,
+    nv_panels,
 )
 from hypre_tpu_torch.setup import device_amg as dev
 from hypre_tpu_torch.ops.stencil import (
@@ -168,15 +172,22 @@ def test_csr_kernel_on_edge_rows(card, name, group, dtype):
         assert csr_spmv(M, x).shape == (0,)
 
 
-NV = [1, 2, 3, 4, 8, 12, 16]
+NV = list(range(1, 17)) + [17, 24, 32]
 
 
 def _check_spmm(M, X, dtype):
+    """K2-NV against its plain version, one launch a panel, and each
+    column of Y bit for bit K2's on that column of X."""
+    before = csr_spmm.launches
     Y = csr_spmm(M, X)
     torch.cuda.synchronize()
     assert Y.shape == (M.n_rows, X.shape[1])
+    assert csr_spmm.launches == before + len(
+        nv_panels(X.shape[1], X.element_size()))
     absM = dataclasses.replace(M, values=M.values.abs())
     _check(Y, csr_spmm_plain(M, X), csr_spmm_plain(absM, X.abs()), dtype)
+    for k in range(X.shape[1]):
+        assert torch.equal(Y[:, k], csr_spmv(M, X[:, k].contiguous())), k
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -188,14 +199,33 @@ def test_csr_spmm_kernel_matches_plain(card, nv, dtype):
     X = torch.as_tensor(rng.standard_normal((4001, nv)), dtype=dtype,
                         device=card)
     _check_spmm(M, X, dtype)
-    if nv == 1:
-        assert torch.equal(csr_spmm(M, X)[:, 0], csr_spmv(M, X[:, 0]))
 
 
-@pytest.mark.parametrize("nv", [3, 12])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("first", [1, 3])
+@pytest.mark.parametrize("nv", [1, 2, 4, 7, 12, 16, 17])
+def test_csr_spmm_kernel_on_column_slices(card, nv, first, dtype):
+    """X = W[:, first:first + nv] of a wider block W of 40 columns: its
+    rows start one or three values past a 16-byte boundary, so K2-NV
+    moves every piece in scalar loads and stores; on the 128^3
+    operator's row pattern (7-pt, group 4) cut to 12^3."""
+    rng = np.random.default_rng(100 * nv + first)
+    M = csr_from_scipy(laplacian(12, 12, 12), dtype, card)
+    W = torch.as_tensor(rng.standard_normal((M.n_cols, 40)), dtype=dtype,
+                        device=card)
+    X = W[:, first:first + nv]
+    assert X.data_ptr() % 16
+    _check_spmm(M, X, dtype)
+    assert torch.equal(csr_spmm(M, X), csr_spmm(M, X.contiguous()))
+
+
+@pytest.mark.parametrize("nv", [1, 3, 5, 12, 16, 17, 24, 32])
 @pytest.mark.parametrize("group", [2, 32, None])
 @pytest.mark.parametrize("name", EDGE_CSR)
 def test_csr_spmm_kernel_on_edge_rows(card, name, group, nv):
+    """K2-NV gives a unit a quarter of K2's lanes (at group 2, half),
+    each with 4 (2) slots that hold K2's order: group 32 has long rows
+    in several passes and shuffles across 8 lanes."""
     A = edge_csr(name, seed=5)
     M = csr_from_scipy(A, torch.float64, card)
     if group is not None:
@@ -206,6 +236,13 @@ def test_csr_spmm_kernel_on_edge_rows(card, name, group, nv):
         _check_spmm(M, X, torch.float64)
     else:
         assert csr_spmm(M, X).shape == (0, nv)
+
+
+def test_csr_spmm_refuses_a_column_stride(card):
+    M = csr_from_scipy(laplacian(4, 4, 4), torch.float64, card)
+    X = torch.ones((4, M.n_cols), dtype=torch.float64, device=card).T
+    with pytest.raises(HypreTpuError, match="unit column stride"):
+        csr_spmm(M, X)
 
 
 def _dia_case(name, dtype, device):

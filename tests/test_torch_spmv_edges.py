@@ -15,7 +15,8 @@ tests/test_torch_cuda.py.
 K2-NV's plain version, csr_spmm_plain, is held on the same patterns
 against scipy's A X and, column by column, against csr_spmv_plain (bit
 for bit: it is K2's plain version on each column), at nv = 1, 3, 12,
-with the widths K2-NV launches for each nv (nv_pieces) covering it."""
+with the column panels K2-NV launches for each nv (nv_panels) covering
+it."""
 import numpy as np
 import pytest
 import torch
@@ -26,8 +27,8 @@ from hypre_tpu_torch import Config, set_config
 from hypre_tpu_torch.gen import laplacian
 from hypre_tpu_torch.ops.formats import csr_from_dell
 from hypre_tpu_torch.ops.spmv import (
-    NV_WIDTHS, csr_from_scipy, csr_spmm_plain, csr_spmv_plain, group_size,
-    nv_pieces,
+    MAX_PIECES, csr_from_scipy, csr_spmm_plain, csr_spmv_plain, group_size,
+    nv_panels,
 )
 from hypre_tpu_torch.setup import device_amg as dev
 
@@ -109,7 +110,14 @@ def test_csr_spmm_plain_on_edge_rows(name, nv):
 
 @pytest.mark.parametrize("nv", [1, 2, 3, 4, 5, 8, 12, 13, 16, 24, 31])
 def test_nv_pieces_cover_the_block(nv):
-    pieces = nv_pieces(nv)
-    assert sum(pieces) == nv and all(w in NV_WIDTHS for w in pieces)
-    assert pieces == sorted(pieces, reverse=True)
-    assert (nv in NV_WIDTHS) == (pieces == [nv])
+    """K2-NV's panels tile the block in order, each at most MAX_PIECES
+    16-byte pieces wide (16 columns in f64, 32 in f32), all but the last
+    full: a block of at most one panel's width is one launch."""
+    for item in (8, 4):
+        width = MAX_PIECES * 16 // item
+        panels = nv_panels(nv, item)
+        assert [k for k, _ in panels] == list(range(0, nv, width))
+        assert sum(w for _, w in panels) == nv
+        assert all(w == width for _, w in panels[:-1])
+        assert 0 < panels[-1][1] <= width
+        assert (nv <= width) == (len(panels) == 1)
