@@ -116,7 +116,8 @@ Phases, each printing one JSON line:
              drivers.ij.run in f64 on the card, b = ones, the driver's
              defaults: (a) every solver id that ij_driver does not run
              (5, 6, 8, 12, 16, 17, 18, 20, 43, 50, 51, 60, 61, 80, 81)
-             at -n 100 100 100 (level 0 DIA on K3), the AMG ids on one
+             at -n 100 100 100 (level 0 DIA on K3), AMG-CGNR (5) at 64^3
+             (CGNR_GRID, a cut of depth), the other AMG ids on one
              shared setup, each held to the reference's iterations
              (REF_IJ_SOLVER_ITERS; AMG-CGNR, whose count wanders with
              rounding, within 2%: REF_IJ_SOLVER_SLACK; 6, 17, 18 and 60
@@ -143,6 +144,33 @@ Phases, each printing one JSON line:
              its timing at (b)'s shape (nv = 4, 8, 12, 16, f64 and f32)
              beside its plain version, nv K2 launches, torch.sparse.mm
              and the bound.
+
+17. struct — hypre's struct driver rows through
+             hypre_tpu_torch.drivers.struct.run in f64 on the card, tol
+             1e-6, b = ones, each with three more timed solves: (a) out.7
+             (-n 256 256 256 -solver 11, CG+PFMG), (b) out.5 (-n 2048 2048 1
+             -solver 11), (c) out.1 (-n 2048 2048 1 -solver 10, CG+SMG), each
+             held to the reference's iterations (REF_STRUCT_ITERS); then
+             struct_matvec (plain torch: a zeros and one addcmul_ an offset)
+             timed at 256^3 with 7 offsets and on (a)'s first 27-offset
+             level beside its bytes bound, and one CG+PFMG iteration of (a)
+             profiled (busy share, struct_matvec against the transfers and
+             the relaxation, launches); (d) out.3 (CG+SMG) at OUT3_HELD's
+             size, held to the reference's count, and at its 128^3, where
+             the reference cannot build its 32768^2 host inverses (the
+             count printed beside hypre's 5); (e) the 4 rows of
+             tests/golden/struct_solvers.jobs on the card; (f) PFMG alone
+             with RB-GS at 256^3 (-solver 1 -relax 2), the reference's
+             count; (g) SparseMSG at MSG_HELD's size (the reference's
+             count) and at 100^3 (343 lattice grids), SysPFMG on a
+             two-variable coupled system at 2x80^3, FAC on a 768^2 grid
+             refined on its middle half (FAC_CYCLES cycles, held to the
+             reference's residual to rtol 1e-3), the sstruct Split solver
+             on two 708^2 parts (PCG); each prints setup and solve seconds,
+             iterations, relres and peak memory beside hypre's published
+             figures where there are some; FAC's and Split's operators are
+             held against K2's or K3's plain version.  Every run checks
+             the true relative residual against the tolerance.
 
 Then the kernels line, nvidia-smi's line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises: nothing is
@@ -184,6 +212,14 @@ from hypre_tpu_torch.ops.stencil import (
 from hypre_tpu_torch.setup import device_amg as dev
 from hypre_tpu_torch.setup.utils import native_enabled
 from hypre_tpu_torch.solvers import AmgConfig, BoomerAMG, pcg
+from hypre_tpu_torch.drivers import struct as struct_driver
+from hypre_tpu_torch.ops.formats import sparse_op_from_scipy
+from hypre_tpu_torch.sstruct import SplitSolver, SStructGrid, SStructMatrix
+from hypre_tpu_torch.struct import (
+    FAC, FacConfig, PfmgConfig, SparseMSG, SparseMSGConfig, SysPFMG,
+    struct_laplacian, struct_matrix_from_stencil, struct_matvec,
+)
+from hypre_tpu_torch.struct.sys_pfmg import _sys_matvec as sys_matvec
 from hypre_tpu_torch.testing import runtest
 
 LAPLACE_7PT = [((0, 0, 0), 6.0), ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0),
@@ -258,14 +294,19 @@ REF_OUT17_LEVELS = [1048576, 14762, 1750, 223, 28]
 # 100^3 on the CPU in f64, every solver id that the ij_driver phase does
 # not run, each with -n 100 100 100 -solver S -exec_host: iterations, and
 # the final relative residual it printed (6, 17, 18 and 60 stop at
-# -max_iter 1000 unconverged).  -solver 5 does not compile there (the
-# while_loop inlines the exact-GS cycle twice and LLVM runs out of mapped
-# memory); its count is the reference's cgnr with the cycle jitted once,
-# python tools/ij_reference_counts.py cgnr 100
-REF_IJ_SOLVER_ITERS = {5: 203, 6: 1000, 8: 152, 12: 272, 16: 15, 17: 1000,
+# -max_iter 1000 unconverged).  -solver 5 (AMG-CGNR, two exact-GS
+# V-cycles an iteration) runs at CGNR_GRID: at 100^3 its 200 iterations
+# took 127 s on an H100 (700 W), and with the struct phase the whole run
+# would pass ~1000 s, so its depth is cut to 64^3.  The reference's
+# driver does not compile it (the while_loop inlines the exact-GS cycle
+# twice and LLVM runs out of mapped memory); its count is the reference's
+# cgnr with the cycle jitted once, python tools/ij_reference_counts.py
+# cgnr 64: 100 iterations, relres 9.722794e-09 (203 at 100^3)
+CGNR_GRID = 64
+REF_IJ_SOLVER_ITERS = {5: 100, 6: 1000, 8: 152, 12: 272, 16: 15, 17: 1000,
                        18: 1000, 20: 14, 43: 117, 50: 525, 51: 12,
                        60: 1000, 61: 13, 80: 783, 81: 98}
-REF_IJ_SOLVER_RELRES = {5: 8.638056e-09, 6: 6.954759e-01, 8: 9.021267e-09,
+REF_IJ_SOLVER_RELRES = {5: 9.722794e-09, 6: 6.954759e-01, 8: 9.021267e-09,
                         12: 9.222296e-09, 16: 6.981601e-11,
                         17: 6.211218e-02, 18: 1.574823e-04,
                         20: 6.990455e-09, 43: 9.889851e-09,
@@ -273,12 +314,13 @@ REF_IJ_SOLVER_RELRES = {5: 8.638056e-09, 6: 6.954759e-01, 8: 9.021267e-09,
                         60: 6.211218e-02, 61: 2.237597e-09,
                         80: 9.829014e-09, 81: 9.144086e-09}
 # AMG-CGNR's count wanders with rounding: CG on the normal equations
-# takes ~200 iterations at 100^3, and the port takes 201 on the CPU
-# (its driver with -exec_host) and 200 on the card, where the
-# reference takes 203.  It is held within 2% (4 iterations) of the
-# reference's; tests/test_torch_krylov_breadth.py holds AMG-CGNR to the
-# reference's exact count at 13^3.  Every other id is held exactly.
-REF_IJ_SOLVER_SLACK = {5: 4}
+# takes ~200 iterations at 100^3, and the port took 201 there on the CPU
+# (its driver with -exec_host) and 200 on the card, where the reference
+# takes 203; at 64^3 the port takes 99 on the CPU, the reference 100.
+# It is held within 2% of the reference's; tests/test_torch_krylov_
+# breadth.py holds AMG-CGNR to the reference's exact count at 13^3.
+# Every other id is held exactly.
+REF_IJ_SOLVER_SLACK = {5: 2}
 # the same driver in LOBPCG mode at 128^3 (-lobpcg -solver 1), whose
 # eager V-cycles take hours on the CPU; the reference's lobpcg with the
 # cycle jitted once gives the driver's output digit for digit at 10^3:
@@ -1242,7 +1284,8 @@ def phase_ij_driver() -> dict:
             "iters_all_solves": iters, "reference_iters": REF_IJ_ITERS[solver],
             "relres": out["relres"], "true_relres": true_relres,
             "setup_s": out["setup_s"], "first_solve_s": out["solve_s"],
-            "solve_s": statistics.median(times), "solve_times_s": times,
+            "solve_s": statistics.median(times) if times else out["solve_s"],
+           "solve_times_s": times,
             "per_iter_ms": statistics.median(times) / max(out["iters"], 1)
             * 1e3,
             "launches": launches,
@@ -1270,11 +1313,12 @@ def phase_ij_driver() -> dict:
     return runs
 
 
-def phase_golden_on_card() -> None:
-    """The golden rows the port runs, on the card (no -exec_host)."""
+def phase_golden_rows(name: str) -> None:
+    """The rows of tests/golden/<name>.jobs on the card (no -exec_host)
+    against <name>.saved by runtest's rule."""
     set_config(Config(real_dtype=F64, device="cuda"))
-    jobs = runtest.read_jobs(GOLDEN / "solvers.jobs")
-    saved = runtest.read_golden(GOLDEN / "solvers.saved")
+    jobs = runtest.read_jobs(GOLDEN / f"{name}.jobs")
+    saved = runtest.read_golden(GOLDEN / f"{name}.saved")
     rows, failures = [], []
     for job, gold in zip(jobs, saved):
         if not runtest.ported(job):
@@ -1291,10 +1335,9 @@ def phase_golden_on_card() -> None:
                      "golden_relres": gold[1], "ok": not fails,
                      "wall_s": wall, "launches": read_counts()})
     reset_counts()
-    emit({"phase": "golden_on_card", "n_rows": len(rows),
-          "n_failed": len(failures), "rows": rows})
-    if failures:
-        raise AssertionError("golden rows on the card: " + "; ".join(failures))
+    emit({"phase": "golden_on_card", "jobs": f"{name}.jobs",
+          "n_rows": len(rows), "n_failed": len(failures), "rows": rows})
+    hold(bool(failures), f"{name} rows on the card: " + "; ".join(failures))
 
 
 def breadth_run(label: str, grid, entries, cfg: AmgConfig,
@@ -1701,12 +1744,13 @@ def ij_args(*flags):
 
 
 def ij_solver_runs(amg, amg_setup_s: float) -> list:
-    """(a): every solver id of REF_IJ_SOLVER_ITERS at 100^3 through
-    drivers.ij.run, the AMG ids on one shared setup."""
-    n = IJ_GRID
+    """(a): every solver id of REF_IJ_SOLVER_ITERS at 100^3 (-solver 5
+    at CGNR_GRID) through drivers.ij.run, the AMG ids at 100^3 on one
+    shared setup."""
     rows = []
     for solver in sorted(REF_IJ_SOLVER_ITERS):
-        shared = solver in ij.NEED_AMG
+        n = CGNR_GRID if solver == 5 else IJ_GRID
+        shared = solver in ij.NEED_AMG and n == IJ_GRID
         reset_counts()
         out = ij.run(ij_args("-n", n, n, n, "-solver", solver),
                      amg=amg if shared else None)
@@ -1936,6 +1980,490 @@ def phase_ij_solvers(gen, peaks) -> dict:
             "spmm_err": spmm_err, "spmm_timing": timing}
 
 
+
+# ---------------------------------------------------------------------------
+# struct: hypre's struct driver rows and the struct solvers
+# ---------------------------------------------------------------------------
+
+# hypre's published struct rows (BASELINE.md:50-55; 4 GPUs a run, f64,
+# the driver's tol 1e-6): setup and solve seconds, iterations
+STRUCT_ROWS = {
+    "a": ("out.7", "-n 256 256 256 -solver 11",
+          {"v100_setup_solve_s": [0.051, 0.409],
+           "mi250x_setup_solve_s": [0.054, 0.333], "iters": 10}),
+    "b": ("out.5", "-n 2048 2048 1 -solver 11",
+          {"v100_setup_solve_s": [0.0123, 0.138],
+           "mi250x_setup_solve_s": [0.0120, 0.0956], "iters": None}),
+    "c": ("out.1", "-n 2048 2048 1 -solver 10",
+          {"v100_setup_solve_s": [0.121, 0.577],
+           "mi250x_setup_solve_s": [0.092, 0.421], "iters": 6}),
+    "d": ("out.3", "-n 128 128 128 -solver 10",
+          {"v100_setup_solve_s": [1.198, 6.012],
+           "mi250x_setup_solve_s": [0.862, 4.294], "iters": 5}),
+    "f": ("PFMG RB-GS", "-n 256 256 256 -solver 1 -relax 2", {}),
+}
+# hypre_tpu's iterations at the same sizes, f64 on the CPU
+# (python tools/struct_reference_counts.py out7 | out5 | out1 | rbgs).
+# out.7's 52 against hypre's 10: the reference's PFMG coarsens x alone
+# from 128^3 down to 2 (its _pick_cdir, level shapes in PERF.md §4);
+# (f) stops at -max_iter 100 unconverged in the reference too and is
+# held to its residual (rtol 1e-3, runtest's rule)
+REF_STRUCT_ITERS = {"a": 52, "b": 10, "c": 7, "f": 100}
+REF_STRUCT_RELRES = {"f": 0.01310655}
+# out.3 at 128^3 needs two 32768^2 dense inverses on the host a 3-D level
+# in the reference, which it cannot build on the CPU: its count is held
+# at the largest size it finishes (tools/struct_reference_counts.py out3
+# N: 5 iterations at 32^3 after 10.5 min; 64^3 had not finished after
+# ~25 CPU-minutes), where the card's count must equal it; at 128^3 the
+# card's count is printed beside hypre's published 5
+OUT3_HELD = (32, 5)           # (N, iterations)
+# (g): each at >= 10^6 unknowns (the host setups finish in seconds);
+# SparseMSG's compile in the reference (343 lattice grids at 100^3) is
+# out of reach on a CPU, so its count is held at MSG_HELD's size
+MSG_GRID = 100
+MSG_HELD = (32, 32)           # (N, iterations)
+SYS_GRID = 80                 # 2 variables: 1,024,000 unknowns
+FAC_GRID = 768                # composite 1,032,192 unknowns
+FAC_CYCLES = 20
+SPLIT_GRID = 708              # two 708^2 parts: 1,002,528 unknowns
+# (iterations, relres) of tools/struct_reference_counts.py sys 80,
+# fac 768 (FAC diverges at this size in the reference too), split 708
+REF_G = {"sys": (15, 6.965598147451131e-07), "fac": (20, 2.89541678084891),
+         "split": (110, 7.529976720714282e-07)}
+STRUCT_TOL = 1e-6
+
+
+L5 = [((0, 0, 0), 4.0), ((0, 0, -1), -1.0), ((0, 0, 1), -1.0),
+      ((0, -1, 0), -1.0), ((0, 1, 0), -1.0)]
+
+
+def hold(failed: bool, msg: str) -> None:
+    """A check of the struct phase: raises when it failed."""
+    if failed:
+        raise AssertionError(msg)
+
+
+def sys_coupled_system(n: int, c: float = 0.15) -> dict:
+    """tests/test_sys_pfmg.py's two-variable system at n^3 (B = c (I +
+    east shift)) with the identity added to each Laplacian block, which
+    keeps it SPD at this size (tools/struct_reference_counts.py sys)."""
+    L = struct_matrix_from_stencil((n, n, n), [
+        ((0, 0, -1), -1.0), ((0, 0, 1), -1.0), ((0, -1, 0), -1.0),
+        ((0, 1, 0), -1.0), ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0),
+        ((0, 0, 0), 7.0)])
+    B = struct_matrix_from_stencil((n, n, n),
+                                   [((0, 0, 0), c), ((0, 0, 1), 0.5 * c)])
+    Bt = struct_matrix_from_stencil((n, n, n),
+                                    [((0, 0, 0), c), ((0, 0, -1), 0.5 * c)])
+    return {(0, 0): L, (0, 1): B, (1, 0): Bt, (1, 1): L}
+
+
+def sstruct_two_parts(n: int):
+    """tests/test_sstruct.py's two (1, n, n) 5-pt parts glued along an
+    edge by graph entries."""
+    grid = SStructGrid()
+    grid.add_part((1, n, n), L5)
+    grid.add_part((1, n, n), L5)
+    M = SStructMatrix(grid)
+    for y in range(n):
+        M.add_graph_entry(0, (0, y, n - 1), 1, (0, y, 0), -1.0)
+        M.add_graph_entry(1, (0, y, 0), 0, (0, y, n - 1), -1.0)
+    return M
+
+
+def struct_true_relres(A, b, x) -> float:
+    return float(torch.linalg.vector_norm(b - struct_matvec(A, x))
+                 / torch.linalg.vector_norm(b))
+
+
+def struct_row(tag: str, flags: str, ref_iters, hypre: dict,
+               solves: int = 3, ref_relres=None) -> dict:
+    """One struct driver row through drivers.struct.run on the card, then
+    `solves` more timed solves (pcg with the driver's preconditioner, or
+    the standalone multigrid), b = ones scaled a little each time.  A
+    row the reference leaves unconverged (ref_relres) is held to its
+    residual, rtol 1e-3."""
+    set_config(Config(real_dtype=F64, device="cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = struct_driver.run(struct_driver.build_parser().parse_args(
+        flags.split()))
+    launches = read_counts()
+    A, mg, b = out["A"], out["mg"], out["b"]
+    iters, times, x, bt = [out["iters"]], [], out["x"], b
+    for t in range(solves):
+        bt = b * (1.0 + 0.0137 * (t + 1))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if out["solver"] in (0, 1):
+            x, it, _ = mg.solve(bt, tol=STRUCT_TOL)
+        else:
+            res = pcg(A=lambda u: struct_matvec(A, u), b=bt,
+                      M=mg.precondition, tol=STRUCT_TOL, max_iter=100)
+            x, it = res.x, res.iters
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        iters.append(it)
+    true_relres = struct_true_relres(A, bt, x)
+    row = {"phase": "struct", "run": tag, "command": f"struct {flags}",
+           "dtype": "float64", "unknowns": out["n"],
+           "level_shapes": [list(s) for s in out["level_shapes"]],
+           "setup_s": out["setup_s"], "first_solve_s": out["solve_s"],
+           "solve_s": statistics.median(times) if times else out["solve_s"],
+           "solve_times_s": times,
+           "iters": out["iters"], "iters_all_solves": iters,
+           "reference_iters": ref_iters, "relres": out["relres"],
+           "true_relres": true_relres, "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "hypre_published": hypre}
+    emit(row)
+    hold(not bool(torch.isfinite(x).all())
+         or tuple(x.shape) != tuple(A.shape),
+         f"struct ({tag}): solution not finite or misshapen")
+    if ref_relres is None:
+        hold(true_relres > STRUCT_TOL,
+             f"struct ({tag}): true relres {true_relres:.3e}")
+    else:
+        hold(abs(out["relres"] - ref_relres) > 1e-3 * ref_relres,
+             f"struct ({tag}): relres {out['relres']:e}, the reference's "
+             f"{ref_relres:e}")
+    hold(ref_iters is not None and set(iters) != {ref_iters},
+         f"struct ({tag}): iterations {iters}, the reference's {ref_iters}")
+    return {"out": out, "row": row}
+
+
+def struct_matvec_timing(A, peaks, label: str, gen) -> dict:
+    """struct_matvec (plain torch: one zeros and one addcmul_ a stencil
+    offset) on A: CUDA-event time a call, the device time of its kernels
+    (profiler; the tracer drops records on the card's machine, so
+    sessions repeat until one traced every launch, else the most
+    complete one is scaled up), and the bytes bound: coefficients, u and
+    y, each once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    u = torch.randn(A.shape, generator=gen, dtype=F64, device="cuda")
+    ms = time_ms(lambda: struct_matvec(A, u))
+    reps, launches = 10, 1 + len(A.offsets)
+    best = (-1, 0.0)
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                struct_matvec(A, u)
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        traced = sum(e.count for e in evts)
+        if traced > best[0]:
+            best = (traced, sum(e.self_device_time_total for e in evts))
+        if traced >= reps * launches:
+            break
+    traced, us = best
+    dev_ms = us / 1e3 / reps * (reps * launches / max(traced, 1))
+    n_bytes = (len(A.offsets) + 2) * A.n_rows * 8
+    flops = 2 * len(A.offsets) * A.n_rows
+    b_ms, b_by = bound_ms(peaks, n_bytes, flops, F64)
+    return {"op": label, "shape": list(A.shape), "offsets": len(A.offsets),
+            "ms": ms, "device_ms": dev_ms,
+            "kernels_traced": [traced, reps * launches], "bound_ms": b_ms,
+            "bound_by": b_by, "bound_bytes": n_bytes,
+            "share_of_bound": b_ms / dev_ms if dev_ms else None,
+            "launches_per_call": launches}
+
+
+@contextlib.contextmanager
+def struct_calls_counted(counts: dict):
+    """While open, every struct_matvec the PFMG cycle makes is counted
+    (calls, and launches: one zeros and one addcmul_ an offset) and
+    traced as a profiler range, and so are its transfers and
+    relaxation (their ranges include the matvecs they make)."""
+    from torch.profiler import record_function
+
+    from hypre_tpu_torch.struct import pfmg as pfmg_mod
+
+    saved = {nm: getattr(pfmg_mod, nm) for nm in (
+        "struct_matvec", "_restrict_apply", "_interp_apply", "_pfmg_relax")}
+
+    def wrap(nm, fn):
+        def inner(*a, **k):
+            counts[nm] = counts.get(nm, 0) + 1
+            if nm == "struct_matvec":
+                counts["struct_matvec_launches"] = counts.get(
+                    "struct_matvec_launches", 0) + 1 + len(a[0].offsets)
+            with record_function(nm):
+                return fn(*a, **k)
+        return inner
+
+    for nm, fn in saved.items():
+        setattr(pfmg_mod, nm, wrap(nm, fn))
+    try:
+        yield counts
+    finally:
+        for nm, fn in saved.items():
+            setattr(pfmg_mod, nm, fn)
+
+
+def profile_struct_iteration(row_a: dict) -> dict:
+    """One CG+PFMG iteration of (a) (one cycle and one A p) under the
+    profiler: busy share, device time by kind and by range (struct_matvec,
+    restriction, interpolation, relaxation), kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = row_a["out"]
+    A, mg = out["A"], out["mg"]
+    r = torch.ones(A.shape, dtype=F64, device="cuda")
+    best = None
+    for _ in range(5):
+        counts = {}
+        with struct_calls_counted(counts):
+            mg.precondition(r)                     # warm
+            counts.clear()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                mg.precondition(r)
+                counts["struct_matvec"] += 1
+                counts["struct_matvec_launches"] += 1 + len(A.offsets)
+                struct_matvec(A, r)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        # the tracer drops records: struct_matvec's addcmul_ launches,
+        # counted on the host, say how complete a session is
+        expected = counts["struct_matvec_launches"] - counts["struct_matvec"]
+        traced = sum(e.count for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "addcmul" in e.key)
+        if best is None or traced > best[0]:
+            best = (traced, expected, prof, wall_ms, counts)
+        if traced >= expected:
+            break
+    traced, expected, prof, wall_ms, counts = best
+    kernels, launches, by_kind, ranges = 0.0, 0, {}, {}
+    for evt in prof.key_averages():
+        if evt.key in ("struct_matvec", "_restrict_apply", "_interp_apply",
+                       "_pfmg_relax"):
+            # the range as the card saw it (first to last kernel, summed
+            # over calls), beside the host's record of it
+            side = ("device_span_ms" if evt.device_type
+                    == torch.autograd.DeviceType.CUDA else "host_device_ms")
+            ranges.setdefault(evt.key, {"calls": evt.count})[side] = (
+                evt.self_device_time_total if side == "device_span_ms"
+                else evt.device_time_total) / 1e3
+            continue
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.self_device_time_total
+        kernels += us / 1e3
+        launches += evt.count
+        kind = "struct_matvec (addcmul)" if "addcmul" in evt.key \
+            else _kind(evt.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+    row = {"phase": "profile", "path": "struct (a) out.7 CG+PFMG",
+           "unit": "one PFMG cycle and one A p", "wall_ms": wall_ms,
+           "device_busy_ms": kernels, "device_busy_share": kernels / wall_ms,
+           "kernel_launches": launches,
+           "addcmul_traced": [traced, expected], "calls": counts,
+           "ranges_device_ms": ranges,
+           "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1]))}
+    emit(row)
+    return row
+
+
+def g_row(name: str, size, setup_s, solve_s, it, rel, true_rel, ref,
+          launches, extra=None) -> dict:
+    row = {"phase": "struct", "run": f"g {name}", "size": size,
+           "setup_s": setup_s, "solve_s": solve_s, "iters": it,
+           "relres": rel, "true_relres": true_rel, "reference": ref,
+           "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **(extra or {})}
+    emit(row)
+    return row
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def msg_run(n: int) -> tuple:
+    torch.cuda.reset_peak_memory_stats()
+    A = struct_laplacian(n, n, n)
+    msg, setup_s = timed(lambda: SparseMSG(SparseMSGConfig(jump=0)).setup(A))
+    b = torch.ones(A.shape, dtype=F64, device="cuda")
+    (x, it, rel), solve_s = timed(lambda: msg.solve(b, tol=STRUCT_TOL))
+    return msg, setup_s, solve_s, it, rel, struct_true_relres(A, b, x)
+
+
+def struct_g_runs(gen) -> dict:
+    """(g): SparseMSG, SysPFMG, FAC and the sstruct Split solver at >=
+    10^6 unknowns, each held to the reference's count (SparseMSG: at
+    MSG_HELD's size; FAC: the reference's residual after FAC_CYCLES);
+    FAC's and Split's operators on K2/K3 against their plain versions."""
+    set_config(Config(real_dtype=F64, device="cuda"))
+    errs = {"csr_spmv": 0.0, "dia_matvec": 0.0}
+    rows = {}
+    # SparseMSG: the held size, then full size
+    n_held, it_held = MSG_HELD
+    _, s_s, v_s, it, rel, tr = msg_run(n_held)
+    rows["msg_held"] = g_row("SparseMSG", [n_held] * 3, s_s, v_s, it, rel,
+                             tr, it_held, None)
+    hold(it != it_held or tr > STRUCT_TOL,
+         f"SparseMSG {n_held}^3: {it} iterations (reference {it_held}), "
+         f"true relres {tr:.3e}")
+    msg, s_s, v_s, it, rel, tr = msg_run(MSG_GRID)
+    rows["msg"] = g_row("SparseMSG", [MSG_GRID] * 3, s_s, v_s, it, rel, tr,
+                        None, None, {"lattice_grids": len(msg.grids)})
+    del msg
+    hold(tr > STRUCT_TOL, f"SparseMSG {MSG_GRID}^3: true relres {tr:.3e}")
+    # SysPFMG: the two-variable coupled system
+    torch.cuda.reset_peak_memory_stats()
+    n = SYS_GRID
+    blocks = sys_coupled_system(n)
+    sysmg, s_s = timed(lambda: SysPFMG(PfmgConfig()).setup(blocks, 2,
+                                                           (n, n, n)))
+    b = torch.ones((2, n, n, n), dtype=F64, device="cuda")
+    (x, it, rel), v_s = timed(lambda: sysmg.solve(b, tol=STRUCT_TOL))
+    tr = float(torch.linalg.vector_norm(b - sys_matvec(
+        sysmg.hierarchy.levels[0], x)) / torch.linalg.vector_norm(b))
+    ref_it, _ = REF_G["sys"]
+    rows["sys"] = g_row("SysPFMG", [2, n, n, n], s_s, v_s, it, rel, tr,
+                        ref_it, None,
+                        {"level_shapes": [list(s) for s in
+                                          sysmg.level_shapes]})
+    del sysmg, blocks
+    hold(it != ref_it or tr > STRUCT_TOL,
+         f"SysPFMG: {it} iterations (reference {ref_it}), true relres "
+         f"{tr:.3e}")
+    # FAC: FAC_CYCLES composite cycles, the reference's residual
+    torch.cuda.reset_peak_memory_stats()
+    n = FAC_GRID
+    Ac = struct_matrix_from_stencil((1, n, n), L5)
+    fac, s_s = timed(lambda: FAC(Ac, [(o, 4.0 * v) for o, v in L5],
+                                 (0, n // 4, n // 4),
+                                 (1, 3 * n // 4, 3 * n // 4), FacConfig()))
+    b = torch.as_tensor(fac.composite_rhs(np.ones((1, n, n)),
+                                          np.ones(fac.fine_shape)),
+                        dtype=F64, device="cuda")
+    reset_counts()
+    (x, it, rel), v_s = timed(lambda: fac.solve(b, tol=STRUCT_TOL,
+                                                max_iter=FAC_CYCLES))
+    launches = read_counts()
+    ref_it, ref_rel = REF_G["fac"]
+    x_cpu = x.cpu().numpy()
+    tr = float(np.linalg.norm(fac.composite_rhs(
+        np.ones((1, n, n)), np.ones(fac.fine_shape)) - fac.A_comp @ x_cpu)
+        / np.linalg.norm(b.cpu().numpy()))
+    fac_ops = [("FAC A_comp", fac.A_op), ("FAC R", fac.R_op),
+               ("FAC P", fac.P_op)] + [
+        (f"FAC coarse {nm}", op) for nm, op in hierarchy_ops(
+            fac.coarse, (CsrMatrix, DiaMatrix))]
+    rows["fac"] = g_row("FAC", {"coarse": [1, n, n],
+                                "composite_unknowns": int(b.numel())},
+                        s_s, v_s, it, rel, tr, [ref_it, ref_rel], launches,
+                        {"formats": {nm: type(op).__name__
+                                     for nm, op in fac_ops}})
+    hold(it != ref_it or abs(rel - ref_rel) > 1e-3 * ref_rel,
+         f"FAC: {it} cycles, relres {rel:.6e}; the reference's {ref_it}, "
+         f"{ref_rel:.6e}")
+    # Split: two parts glued along an edge, PCG
+    torch.cuda.reset_peak_memory_stats()
+    n = SPLIT_GRID
+    M = sstruct_two_parts(n)
+    A = M.assemble_parcsr()
+    split, s_s = timed(lambda: SplitSolver(M).setup())
+    op = sparse_op_from_scipy(A)
+    b = torch.ones(A.shape[0], dtype=F64, device="cuda")
+    reset_counts()
+    res, v_s = timed(lambda: pcg(op, b, M=split.precondition,
+                                 tol=STRUCT_TOL, max_iter=500))
+    launches = read_counts()
+    tr = float(np.linalg.norm(np.ones(A.shape[0]) - A @ res.x.cpu().numpy())
+               / np.sqrt(A.shape[0]))
+    ref_it, _ = REF_G["split"]
+    rows["split"] = g_row("sstruct Split", [2, 1, n, n], s_s, v_s,
+                          res.iters, res.relres, tr, ref_it, launches,
+                          {"format": type(op).__name__})
+    hold(res.iters != ref_it or tr > STRUCT_TOL,
+         f"Split: {res.iters} iterations (reference {ref_it}), true relres "
+         f"{tr:.3e}")
+    # the hand kernels of FAC's and Split's operators on the card
+    checks = []
+    for label, op_ in fac_ops + [("Split A", op)]:
+        if isinstance(op_, (CsrMatrix, DiaMatrix)):
+            xk = torch.randn(op_.n_cols, generator=gen, dtype=F64,
+                             device="cuda")
+            c = (check_csr if isinstance(op_, CsrMatrix) else check_dia)(
+                op_, xk, label)
+            key = "csr_spmv" if isinstance(op_, CsrMatrix) else "dia_matvec"
+            errs[key] = max(errs[key], c["max_abs_err"])
+            checks.append(c)
+    emit({"phase": "kernel_checks", "path": "struct (g) FAC and Split",
+          "checks": checks})
+    hold(launches["dia_matvec"] + launches["csr_spmv"] == 0
+         or rows["fac"]["launches"]["csr_spmv"] == 0,
+         "struct (g): K2/K3 not launched by FAC or Split")
+    return {"rows": rows, "errs": errs}
+
+
+def phase_struct(peaks, gen) -> dict:
+    """hypre's struct rows (a)-(d), (f), the golden rows (e), the struct
+    solvers (g) and struct_matvec's timing on the card.  Each row's
+    objects are dropped before the next, so its peak memory is its own."""
+    t0 = time.perf_counter()
+    rows = {}
+    name, flags, hypre = STRUCT_ROWS["a"]
+    rows["a"] = struct_row("a", flags, REF_STRUCT_ITERS["a"],
+                           {"case": name, **hypre})
+    A0 = rows["a"]["out"]["A"]
+    lvl27 = next(lvl.A for lvl in rows["a"]["out"]["mg"].hierarchy.levels
+                 if len(lvl.A.offsets) == 27)
+    timing = [struct_matvec_timing(A0, peaks, "out.7 level 0", gen),
+              struct_matvec_timing(lvl27, peaks, "out.7 first 27-offset "
+                                   "level", gen)]
+    prof = profile_struct_iteration(rows["a"])
+    emit({"phase": "struct_matvec_timing", "timing": timing,
+          "calls_per_cg_pfmg_iter": prof["calls"]["struct_matvec"],
+          "launches_per_cg_pfmg_iter":
+              prof["calls"]["struct_matvec_launches"],
+          "kernel_launches_per_cg_pfmg_iter": prof["kernel_launches"]})
+    del A0, lvl27, rows["a"]["out"]
+    torch.cuda.empty_cache()
+    for tag in ("b", "c"):
+        name, flags, hypre = STRUCT_ROWS[tag]
+        rows[tag] = struct_row(tag, flags, REF_STRUCT_ITERS[tag],
+                               {"case": name, **hypre})
+        del rows[tag]["out"]
+        torch.cuda.empty_cache()
+    # (d): out.3 at the held size (the reference's count), then 128^3
+    n_held, it_held = OUT3_HELD
+    rows["d_held"] = struct_row("d (held size)",
+                                f"-n {n_held} {n_held} {n_held} -solver 10",
+                                it_held, {}, solves=0)
+    del rows["d_held"]["out"]
+    name, flags, hypre = STRUCT_ROWS["d"]
+    rows["d"] = struct_row("d", flags, None, {"case": name, **hypre})
+    del rows["d"]["out"]
+    torch.cuda.empty_cache()
+    phase_golden_rows("struct_solvers")
+    name, flags, hypre = STRUCT_ROWS["f"]
+    rows["f"] = struct_row("f", flags, REF_STRUCT_ITERS["f"],
+                           {"case": name}, solves=0,
+                           ref_relres=REF_STRUCT_RELRES["f"])
+    del rows["f"]["out"]
+    torch.cuda.empty_cache()
+    g = struct_g_runs(gen)
+    emit({"phase": "struct", "run": "all", "wall_s":
+          time.perf_counter() - t0})
+    return {"rows": {k: v["row"] for k, v in rows.items()},
+            "g": g["rows"], "errs": g["errs"], "matvec_timing": timing}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1972,7 +2500,7 @@ def main() -> int:
                                      ij_path)
     profile_iteration(ij_runs["a"]["out"]["amg"], ij_runs["a"]["out"]["op"],
                       ij_path)
-    phase_golden_on_card()
+    phase_golden_rows("solvers")
     ij_a = ij_runs["a"]["row"]
     timing["dia_matvec"] = phase_dia_timing(
         ij_runs["a"]["out"]["amg"], card["peaks"], gen,
@@ -1981,6 +2509,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     breadth = phase_amg_breadth(gen)
     solvers = phase_ij_solvers(gen, card["peaks"])
+    struct = phase_struct(card["peaks"], gen)
     out22 = {f"launches_out22_{tag}_{when}": breadth[tag][f"launches_{when}"]
              for tag in ("a", "b") for when in ("setup", "solves")}
     kernels = []
@@ -1996,7 +2525,8 @@ def main() -> int:
                  "stencil_matvec"]}),
             ("csr_spmv", "hypre_tpu_torch/csrc/csr_spmv.cu",
              "hypre_tpu/ops/gstell.py:719",
-             max(k2_err, ij_errs["csr_spmv"], breadth["errs"]["csr_spmv"]),
+             max(k2_err, ij_errs["csr_spmv"], breadth["errs"]["csr_spmv"],
+                 struct["errs"]["csr_spmv"]),
              main_path["launches"]["csr_spmv"],
              {"launches_device_path": device_path["out"]["launches_solves"][
                  "csr_spmv"], "launches_ij_driver_a": ij_a["launches"][
@@ -2004,7 +2534,7 @@ def main() -> int:
             ("dia_matvec", "hypre_tpu_torch/csrc/dia_matvec.cu",
              "hypre_tpu/ops/dia_pallas.py:105",
              max(timing["dia_matvec"]["max_abs_err"],
-                 ij_errs["dia_matvec"]),
+                 ij_errs["dia_matvec"], struct["errs"]["dia_matvec"]),
              ij_a["launches"]["dia_matvec"],
              {"launches_ij_driver_b": ij_runs["b"]["row"]["launches"][
                  "dia_matvec"]}),

@@ -24,7 +24,10 @@ ops      — solve-phase operators (stencil, DIA, CSR, dense), the block
 solvers  — BoomerAMG; PCG, GMRES, FlexGMRES, LGMRES, COGMRES, BiCGSTAB,
            CGNR; LOBPCG; the hybrid solver; FSAI, ParaSails, ILU,
            Schwarz and MGR preconditioners
-drivers  — hypre's ij driver; testing — its golden harness
+struct   — structured grids: the struct matrix, PFMG, SMG, SparseMSG,
+           SysPFMG, multi-box grids, FAC (setup numpy on the host,
+           cycles torch on the device); sstruct — parts, graph, Split
+drivers  — hypre's ij and struct drivers; testing — their golden harness
 ij, mmio — IJ assembly and Matrix Market I/O (numpy)
 convert  — carries hypre_tpu state (as numpy arrays) across
 """

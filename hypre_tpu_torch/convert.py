@@ -34,6 +34,10 @@ port's device-setup stages can be fed the reference's own inputs.
 reference's set-up state (FSAI's G, ParaSails' M, ILU's L, U and pivots,
 Schwarz's block inverses), so an apply can be compared from identical
 state.
+
+``struct_matrix_from_numpy`` carries a reference StructMatrix (its
+coefficient arrays as numpy) across, so both packages' struct solvers
+can be built from one operator.
 """
 from __future__ import annotations
 
@@ -237,3 +241,19 @@ def schwarz_from_numpy(block_inv, starts, n: int, config=None, A=None):
     if A is not None:
         out._Aop = sparse_op_from_scipy(sp.csr_matrix(A), prefer_dia=False)
     return out
+
+
+def struct_matrix_from_numpy(coefs, offsets, shape, periodic=(0, 0, 0),
+                             dtype=None, device=None):
+    """A reference StructMatrix (np.asarray of its coefs, and its
+    offsets, shape and periodic flags) as the port's, on the configured
+    device: the same coefficient arrays, offset by offset."""
+    from hypre_tpu_torch.struct.grid import StructMatrix
+
+    dtype = dtype or get_config().real_dtype
+    device = device if device is not None else get_device()
+    return StructMatrix(
+        coefs=torch.as_tensor(np.array(coefs), dtype=dtype, device=device),
+        offsets=tuple(tuple(int(v) for v in off) for off in offsets),
+        shape=tuple(int(v) for v in shape),
+        periodic=tuple(int(v) for v in periodic))

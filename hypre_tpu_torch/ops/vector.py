@@ -12,11 +12,13 @@ import torch
 
 
 def dot(x, y):
-    return torch.dot(x, y)
+    """Inner product over every entry, as jnp.vdot: a (nz, ny, nx) grid
+    vector is flattened (torch.dot takes 1-D tensors only)."""
+    return torch.dot(x.reshape(-1), y.reshape(-1))
 
 
 def norm2(x):
-    return torch.sqrt(torch.dot(x, x))
+    return torch.sqrt(dot(x, x))
 
 
 def axpy(alpha, x, y):

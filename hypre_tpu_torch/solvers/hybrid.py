@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from hypre_tpu_torch.ops.vector import dot
 from hypre_tpu_torch.solvers.amg import AmgConfig, BoomerAMG
 
 
@@ -58,18 +59,18 @@ def hybrid_solve(A_scipy, b, config: HybridConfig | None = None,
     r = b
     z = dinv * r
     p = z
-    gamma = torch.dot(r, z)
+    gamma = dot(r, z)
     rnorm_prev = float(torch.linalg.vector_norm(r))
     dscg_iters = 0
     switched = False
     relres = rnorm_prev / safe_b
     while dscg_iters < cfg.dscg_max_iter and relres > cfg.tol:
         s = matvec(op, p)
-        alpha = gamma / torch.dot(p, s)
+        alpha = gamma / dot(p, s)
         x = x + alpha * p
         r = r - alpha * s
         z = dinv * r
-        gamma_new = torch.dot(r, z)
+        gamma_new = dot(r, z)
         p = z + (gamma_new / gamma) * p
         gamma = gamma_new
         rnorm = float(torch.linalg.vector_norm(r))

@@ -15,6 +15,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from hypre_tpu_torch.ops.vector import dot
+
 
 class KrylovResult(NamedTuple):
     """What pcg, gmres and bicgstab return."""
@@ -60,7 +62,7 @@ def pcg(A, b, x0=None, M=None, tol: float = 1e-8,
     safe_b = bnorm if bnorm > 0 else 1.0
     r = b - Aop(x)
     p = Mop(r)
-    gamma = torch.dot(r, p)
+    gamma = dot(r, p)
     rnorm = float(torch.linalg.vector_norm(r))
     it = 0
     # isfinite: the NaN/Inf guard of par_amg_solve.c:208 — stop
@@ -68,11 +70,11 @@ def pcg(A, b, x0=None, M=None, tol: float = 1e-8,
     while (it < max_iter and rnorm / safe_b > tol and rnorm > atol
            and math.isfinite(rnorm)):
         s = Aop(p)
-        alpha = gamma / torch.dot(p, s)
+        alpha = gamma / dot(p, s)
         x = x + alpha * p
         r = r - alpha * s
         z = Mop(r)
-        gamma_new = torch.dot(r, z)
+        gamma_new = dot(r, z)
         beta = gamma_new / gamma
         p = z + beta * p
         gamma = gamma_new

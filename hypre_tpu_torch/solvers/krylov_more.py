@@ -25,6 +25,7 @@ import math
 import numpy as np
 import torch
 
+from hypre_tpu_torch.ops.vector import dot
 from hypre_tpu_torch.solvers.krylov import KrylovResult
 
 
@@ -77,7 +78,7 @@ def gmres(A, b, x0=None, M=None, tol: float = 1e-8, max_iter: int = 1000,
             w = Aop(z)
             hs = []
             for i in range(j + 1):         # modified Gram-Schmidt
-                hij = torch.dot(V[i], w)
+                hij = dot(V[i], w)
                 w = w - hij * V[i]
                 hs.append(hij)
             hs.append(torch.linalg.vector_norm(w))
@@ -112,9 +113,9 @@ def gmres(A, b, x0=None, M=None, tol: float = 1e-8, max_iter: int = 1000,
             r = b - Aop(x)
             for zk in _aug:
                 Az = Aop(zk)
-                den = torch.clamp(torch.dot(Az, Az), min=1e-300)
+                den = torch.clamp(dot(Az, Az), min=1e-300)
                 alpha = torch.where(torch.linalg.vector_norm(zk) > 0,
-                                    torch.dot(Az, r) / den, 0.0)
+                                    dot(Az, r) / den, 0.0)
                 x = x + alpha * zk
                 r = r - alpha * Az
         return x, j
@@ -142,16 +143,16 @@ def bicgstab(A, b, x0=None, M=None, tol: float = 1e-8,
     rel = float(torch.linalg.vector_norm(r)) / safe_b
     it = 0
     while it < max_iter and rel > tol and math.isfinite(rel):
-        rho_new = torch.dot(rt, r)
+        rho_new = dot(rt, r)
         beta = (rho_new / rho) * (alpha / omega)
         p = r + beta * (p - omega * v)
         ph = Mop(p)
         v = Aop(ph)
-        alpha = rho_new / torch.dot(rt, v)
+        alpha = rho_new / dot(rt, v)
         s = r - alpha * v
         sh = Mop(s)
         t = Aop(sh)
-        omega = torch.dot(t, s) / torch.clamp(torch.dot(t, t), min=1e-300)
+        omega = dot(t, s) / torch.clamp(dot(t, t), min=1e-300)
         x = x + alpha * ph + omega * sh
         r = s - omega * t
         rho = rho_new
@@ -249,17 +250,17 @@ def cgnr(A, b, x0=None, M=None, tol: float = 1e-8, max_iter: int = 1000,
     b, x, safe_b = _start(b, x0)
     r = b - Aop(x)
     p = Mtop(Atop(r))                      # s = C^T A^T r
-    gamma = torch.dot(p, p)
+    gamma = dot(p, p)
     rel = float(torch.linalg.vector_norm(r)) / safe_b
     it = 0
     while it < max_iter and rel > tol and math.isfinite(rel):
         t = Mop(p)                         # t = C p
         w = Aop(t)                         # w = A C p
-        alpha = gamma / torch.clamp(torch.dot(w, w), min=1e-300)
+        alpha = gamma / torch.clamp(dot(w, w), min=1e-300)
         x = x + alpha * t
         r = r - alpha * w
         s = Mtop(Atop(r))
-        gamma_new = torch.dot(s, s)
+        gamma_new = dot(s, s)
         p = s + gamma_new / torch.clamp(gamma, min=1e-300) * p
         gamma = gamma_new
         rel = float(torch.linalg.vector_norm(r)) / safe_b

@@ -9,19 +9,19 @@ golden file, which holds the reference's own output.
 
 Job file format (one case per line, '#' comments):
     ij -n 33 33 1 -solver 1 -exec_host
+    struct -n 32 32 32 -solver 11 -exec_host
 
 Golden file format (one block per job line):
     # <job line>
     Iterations = <int>
     Final Relative Residual Norm = <float>
 
-The port's ij driver runs every solver id and flag of the reference's;
-a ``struct`` line (ROADMAP.md slice 5) raises NotImplementedError when
-run, and ``check_suite`` checks the jobs that the port runs.
+The port's ij and struct drivers run every solver id and flag of the
+reference's.
 
     python -m hypre_tpu_torch.testing.runtest tests/golden/solvers.jobs
-checks the rows of a job file that the port runs against its .saved
-file.
+    python -m hypre_tpu_torch.testing.runtest tests/golden/struct_solvers.jobs
+check the rows of a job file against its .saved file.
 """
 from __future__ import annotations
 
@@ -35,24 +35,24 @@ RES_RE = re.compile(r"Final Relative Residual Norm = ([0-9.eE+-]+)")
 
 
 def _driver(line: str):
+    """The port's driver module of a job line, and its arguments."""
     parts = line.split()
     driver, argv = parts[0], parts[1:]
-    if driver == "struct":
-        raise NotImplementedError("the struct driver is not in the port yet "
-                                  "(ROADMAP.md slice 5, Queue 1 item 14)")
-    if driver != "ij":
+    if driver == "ij":
+        from hypre_tpu_torch.drivers import ij as mod
+    elif driver == "struct":
+        from hypre_tpu_torch.drivers import struct as mod
+    else:
         raise ValueError(f"unknown driver {driver!r}")
-    from hypre_tpu_torch.drivers import ij
-
-    return ij, argv
+    return mod, argv
 
 
 def run_job(line: str) -> tuple[int, float]:
     """Run one driver job in-process; return (iterations, residual)."""
-    ij, argv = _driver(line)
+    mod, argv = _driver(line)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = ij.main(argv)
+        rc = mod.main(argv)
     out = buf.getvalue()
     if rc not in (0, None):
         raise RuntimeError(f"job failed rc={rc}: {line}\n{out}")
@@ -64,13 +64,11 @@ def run_job(line: str) -> tuple[int, float]:
 
 
 def ported(line: str) -> bool:
-    """Whether the port runs this job: its driver is in the port and
-    its flags parse to a known solver (nothing is run)."""
-    try:
-        ij, argv = _driver(line)
-        ij.check_flags(ij.build_parser().parse_args(argv))
-    except NotImplementedError:
-        return False
+    """Whether the port runs this job: its driver's parser takes its
+    flags and the solver id is known (an unknown id raises ValueError;
+    nothing is run)."""
+    mod, argv = _driver(line)
+    mod.check_flags(mod.build_parser().parse_args(argv))
     return True
 
 

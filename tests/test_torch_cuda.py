@@ -23,7 +23,9 @@ and x and vals at addresses that are not 16-byte aligned.  K2-NV
 a wider block (rows not 16-byte aligned) and on the edge-row patterns,
 each column of Y bit for bit K2's on that column of X;
 LOBPCG and ILU-PCG run on the card and on the CPU at 16^3 (the same
-iterations; eigenvalues to 1e-10, x to 1e-10 relative)."""
+iterations; eigenvalues to 1e-10, x to 1e-10 relative), and so does the
+struct driver (CG+PFMG, 2-D and 3-D CG+SMG, PFMG RB-GS: the same
+iterations, x to 1e-10 relative)."""
 import dataclasses
 
 import numpy as np
@@ -542,3 +544,23 @@ def test_setup_device_relax_on_card_matches_cpu(card, relax):
             assert torch.equal(g.cheby_ds.cpu(), c.cheby_ds)
             for a, b in zip(g.cheby_bounds, c.cheby_bounds):
                 assert abs(a - b) <= 1e-12 * abs(b)
+
+
+@pytest.mark.parametrize("flags", ["-n 16 16 16 -solver 11",
+                                   "-n 64 64 1 -solver 10",
+                                   "-n 12 12 12 -solver 10",
+                                   "-n 16 16 16 -solver 1 -relax 2"])
+def test_struct_driver_on_card_matches_cpu(card, flags):
+    """The struct path (plain torch on the card: struct_matvec, the
+    PFMG/SMG cycles, cyclic reduction, the per-plane and device coarsest
+    inverses) against the same run on the CPU: equal iterations, x to
+    1e-10 relative."""
+    from hypre_tpu_torch.drivers import struct
+
+    args = struct.build_parser().parse_args(flags.split())
+    out = struct.run(args)
+    cpu = struct.run(struct.build_parser().parse_args(
+        flags.split() + ["-exec_host"]))
+    assert out["x"].device.type == "cuda"
+    assert out["iters"] == cpu["iters"]
+    assert rel_diff(out["x"].cpu().numpy(), cpu["x"].numpy()) <= 1e-10

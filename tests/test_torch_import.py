@@ -35,7 +35,9 @@ def test_import_leaves_out_jax_and_reference():
         "hypre_tpu_torch.solvers.amg, hypre_tpu_torch.solvers.krylov, "
         "hypre_tpu_torch.solvers.krylov_more, hypre_tpu_torch.ops.dia, "
         "hypre_tpu_torch.ops.trisolve, hypre_tpu_torch.drivers.ij, "
-        "hypre_tpu_torch.testing.runtest\n"
+        "hypre_tpu_torch.testing.runtest, hypre_tpu_torch.struct, "
+        "hypre_tpu_torch.sstruct, hypre_tpu_torch.drivers.struct, "
+        "hypre_tpu_torch.ops.tridiag\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'hypre_tpu' or m.startswith('hypre_tpu.')]\n"
         "assert not bad, bad\n"
@@ -53,7 +55,8 @@ def test_sources_never_name_jax_or_reference_modules():
     assert not offenders
 
 
-@pytest.mark.parametrize("call", ["setup", "pcg", "operator"])
+@pytest.mark.parametrize("call", ["setup", "pcg", "operator", "pfmg", "smg",
+                                  "struct_driver"])
 def test_default_device_without_card_raises(call):
     """The default device is cuda; with no card, entry points raise
     instead of running on the CPU."""
@@ -64,10 +67,19 @@ def test_default_device_without_card_raises(call):
         "from hypre_tpu_torch.gen import laplacian\n"
         "from hypre_tpu_torch.ops import sparse_op_from_scipy\n"
         "from hypre_tpu_torch.solvers import AmgConfig, BoomerAMG, pcg\n"
+        "from hypre_tpu_torch.drivers import struct\n"
+        "from hypre_tpu_torch.struct import PFMG, SMG, StructMatrix\n"
         "A = laplacian(6, 6, 6)\n"
+        "S = StructMatrix(torch.ones(1, 4, 4, 4, dtype=torch.float64),\n"
+        "                 ((0, 0, 0),), (4, 4, 4))\n"
         "calls = {'setup': lambda: BoomerAMG(AmgConfig()).setup(A),\n"
         "         'pcg': lambda: pcg(lambda v: v, np.ones(216)),\n"
-        "         'operator': lambda: sparse_op_from_scipy(A)}\n"
+        "         'operator': lambda: sparse_op_from_scipy(A),\n"
+        "         'pfmg': lambda: PFMG().setup(S),\n"
+        "         'smg': lambda: SMG().setup(S),\n"
+        "         'struct_driver': lambda: struct.run(\n"
+        "             struct.build_parser().parse_args(['-n', '4', '4', '4',\n"
+        "                                               '-solver', '11']))}\n"
         "try:\n"
         f"    calls[{call!r}]()\n"
         "except HypreTpuError as e:\n"

@@ -13,7 +13,11 @@ whole hierarchy.  ``edge_csr`` builds the row-length patterns that K2's
 row blocks must handle.  For the AMG breadth tests, ``coupled_system``
 builds a systems problem, ``check_host_hierarchy`` holds the port's
 host hierarchy against the reference's and ``amg_pair`` sets up both
-packages' BoomerAMG on one Laplacian.  Reference modules are imported
+packages' BoomerAMG on one Laplacian.  For the struct tests,
+``struct_to_port`` carries a reference StructMatrix across,
+``assert_struct_level_equal`` holds a struct level bit for bit and
+``assert_rel_close`` bounds the largest difference by the reference's
+largest entry.  Reference modules are imported
 inside the functions: this module is imported by every port test.
 """
 from __future__ import annotations
@@ -383,3 +387,37 @@ def amg_pair(n: int, stencil: bool = False, **kw):
         laplacian(n, n, n), fine_stencil=fine)
     assert port.level_sizes == ref.level_sizes
     return ref, port
+
+
+def struct_to_port(A):
+    """A hypre_tpu StructMatrix as the port's (the same coefficients)."""
+    from hypre_tpu_torch.convert import struct_matrix_from_numpy
+
+    return struct_matrix_from_numpy(np.asarray(A.coefs), A.offsets, A.shape,
+                                    getattr(A, "periodic", (0, 0, 0)))
+
+
+def assert_struct_level_equal(ref, port, fields=("wm", "wp", "dinv")) -> None:
+    """A struct level (PFMG, SMG or SparseMSG) bit for bit the
+    reference's: shapes, cdir, the operator's offsets and coefficients,
+    and the named arrays."""
+    assert ref.cdir == port.cdir
+    assert tuple(ref.fine_shape) == port.fine_shape
+    assert tuple(ref.coarse_shape) == port.coarse_shape
+    assert tuple(ref.A.offsets) == port.A.offsets
+    np.testing.assert_array_equal(np.asarray(ref.A.coefs),
+                                  port.A.coefs.numpy())
+    for f in fields:
+        r, p = getattr(ref, f), getattr(port, f)
+        assert (r is None) == (p is None), f
+        if r is not None:
+            np.testing.assert_array_equal(np.asarray(r), p.numpy(), err_msg=f)
+
+
+def assert_rel_close(ref, port, tol: float) -> None:
+    """max |port - ref| <= tol * max |ref|."""
+    ref = np.asarray(ref)
+    port = port.numpy() if hasattr(port, "numpy") else np.asarray(port)
+    assert ref.shape == port.shape
+    err = np.abs(port - ref).max() / max(np.abs(ref).max(), 1e-300)
+    assert err <= tol, err
