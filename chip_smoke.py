@@ -117,14 +117,18 @@ Phases, each printing one JSON line:
              defaults: (a) every solver id that ij_driver does not run
              (5, 6, 8, 12, 16, 17, 18, 20, 43, 50, 51, 60, 61, 80, 81)
              at -n 100 100 100 (level 0 DIA on K3), AMG-CGNR (5) at 64^3
-             (CGNR_GRID, a cut of depth), the other AMG ids on one
+             (CGNR_GRID, a cut of depth) and the ParaSails, FSAI and ILU
+             ids 8, 18, 43, 80 at 64^3 (PRECOND_GRID, a cut of depth for
+             the time limit: their host setups and ILU's 783 iterations
+             took 150-200 s at 100^3), the other AMG ids on one
              shared setup, each held to the reference's iterations
              (REF_IJ_SOLVER_ITERS; AMG-CGNR, whose count wanders with
-             rounding, within 2%: REF_IJ_SOLVER_SLACK; 6, 17, 18 and 60
+             rounding, within 2%: REF_IJ_SOLVER_SLACK; 6, 17 and 60
              stop unconverged at 1000 in the reference too and are held
-             to its residual, rtol 1e-3); (b) -lobpcg -solver 1 at 128^3 (2,097,152 rows, past
-             the DIA limit, so A is CSR and the block products run
-             K2-NV), held to the reference's iterations and to the
+             to its residual, rtol 1e-3); (b) -lobpcg -solver 1 at
+             128^3 (2,097,152 rows, past the DIA limit, so A is CSR and
+             the block products run K2-NV), held to the reference's
+             iterations and to the
              analytic eigenvalues of the Dirichlet Laplacian within
              1e-6 relative, one step's work profiled; (c) MGR-GMRES on
              tests/test_mgr.py's two-field system at 2,097,152 rows and
@@ -171,6 +175,32 @@ Phases, each printing one JSON line:
              figures where there are some; FAC's and Split's operators are
              held against K2's or K3's plain version.  Every run checks
              the true relative residual against the tolerance.
+18. maxwell — the auxiliary-space solvers and the API surface in f64 on
+             the card, b = ones, tol 1e-8: (a) ex15, AMS-PCG on
+             maxwell_3d(100) (3,060,300 edges; B_G's level 0 DIA on K3,
+             the edge matrix, G, G^T, Pi, Pi^T and the other levels on
+             K2), one warm-up and three timed solves, the sub-AMGs'
+             levels and formats, launches a PCG iteration, peak memory,
+             and one application profiled; (b) ADS-PCG with the inner
+             AMS on rt0_3d(ADS_GRID) (a cut: the reference's B_Pi is one
+             dense level, PERF.md), one application profiled; (c)
+             SStructMaxwell-PCG on
+             maxwell_3d(100), its edge levels; (d) AME, the 3 smallest
+             non-gradient eigenpairs of maxwell_3d(AME_GRID) (a cut),
+             held to the reference's iterations and its eigenvalues to
+             1e-6 relative; (e) every CSR and DIA operator of (a) and
+             (b) (A, G, G^T, Pi, Pi^T, C, C^T, each sub-hierarchy's A, P
+             and R) against its kernel's plain version, f64 and f32;
+             (f) the ex_capi HYPRE_* flow at CAPI_GRID^3 (a cut of
+             depth for the time limit), a save_amg/load_amg
+             round trip at 128^3 (the same iterations, x bit for bit),
+             ir_solve with an f32 inner AMG-PCG at 128^3 to 1e-8 in f64,
+             and every ported example at its test size.  Rows (a)-(c)
+             also run at the size the reference finishes on a CPU
+             (REF_AMS, REF_ADS, REF_MAXWELL), held to its count; at the
+             card size the count may be 2 more (mesh independence).
+             Every other count equals the reference's
+             (tools/ams_reference_counts.py).
 
 Then the kernels line, nvidia-smi's line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises: nothing is
@@ -180,19 +210,26 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from hypre_tpu_torch import Config, set_config
+from hypre_tpu_torch import Config, hypre_compat as H, set_config
+from hypre_tpu_torch.core.checkpoint import load_amg, save_amg
 from hypre_tpu_torch.csrc import build
+from hypre_tpu_torch.examples import (
+    ex3_pfmg, ex5, ex6_multibox, ex9_systems, ex11, ex15_ams, ex_capi,
+    ex_lobpcg, ex_struct,
+)
 from hypre_tpu_torch.gen import laplacian
 from hypre_tpu_torch.drivers import ij
 from hypre_tpu_torch.gen import laplacian_9pt, laplacian_27pt
@@ -212,9 +249,13 @@ from hypre_tpu_torch.ops.stencil import (
 from hypre_tpu_torch.setup import device_amg as dev
 from hypre_tpu_torch.setup.utils import native_enabled
 from hypre_tpu_torch.solvers import AmgConfig, BoomerAMG, pcg
+from hypre_tpu_torch.solvers.ams import ADS, AME, AMS, maxwell_3d, rt0_3d
+from hypre_tpu_torch.solvers.refine import ir_solve, stencil_apply_f64
 from hypre_tpu_torch.drivers import struct as struct_driver
 from hypre_tpu_torch.ops.formats import sparse_op_from_scipy
-from hypre_tpu_torch.sstruct import SplitSolver, SStructGrid, SStructMatrix
+from hypre_tpu_torch.sstruct import (
+    SplitSolver, SStructGrid, SStructMatrix, SStructMaxwell,
+)
 from hypre_tpu_torch.struct import (
     FAC, FacConfig, PfmgConfig, SparseMSG, SparseMSGConfig, SysPFMG,
     struct_laplacian, struct_matrix_from_stencil, struct_matvec,
@@ -293,7 +334,7 @@ REF_OUT17_LEVELS = [1048576, 14762, 1750, 223, 28]
 # hypre_tpu's ij driver (hypre_tpu/drivers/ij.py, run as a module) at
 # 100^3 on the CPU in f64, every solver id that the ij_driver phase does
 # not run, each with -n 100 100 100 -solver S -exec_host: iterations, and
-# the final relative residual it printed (6, 17, 18 and 60 stop at
+# the final relative residual it printed (6, 17 and 60 stop at
 # -max_iter 1000 unconverged).  -solver 5 (AMG-CGNR, two exact-GS
 # V-cycles an iteration) runs at CGNR_GRID: at 100^3 its 200 iterations
 # took 127 s on an H100 (700 W), and with the struct phase the whole run
@@ -301,18 +342,25 @@ REF_OUT17_LEVELS = [1048576, 14762, 1750, 223, 28]
 # driver does not compile it (the while_loop inlines the exact-GS cycle
 # twice and LLVM runs out of mapped memory); its count is the reference's
 # cgnr with the cycle jitted once, python tools/ij_reference_counts.py
-# cgnr 64: 100 iterations, relres 9.722794e-09 (203 at 100^3)
+# cgnr 64: 100 iterations, relres 9.722794e-09 (203 at 100^3).  Since
+# PR 10 ParaSails-PCG/GMRES (8, 18), FSAI-PCG (43) and ILU-GMRES (80) run
+# at PRECOND_GRID too, a cut of depth that keeps the whole run well
+# inside its limit with the maxwell phase: their host setups and ILU's
+# 783 GMRES iterations took 150-250 s at 100^3 (PERF.md); their counts
+# there were 152, 1000 (unconverged, relres 1.574823e-04), 117 and 783.
 CGNR_GRID = 64
-REF_IJ_SOLVER_ITERS = {5: 100, 6: 1000, 8: 152, 12: 272, 16: 15, 17: 1000,
-                       18: 1000, 20: 14, 43: 117, 50: 525, 51: 12,
-                       60: 1000, 61: 13, 80: 783, 81: 98}
-REF_IJ_SOLVER_RELRES = {5: 9.722794e-09, 6: 6.954759e-01, 8: 9.021267e-09,
+PRECOND_GRID = 64
+PRECOND_CUT = (8, 18, 43, 80)
+REF_IJ_SOLVER_ITERS = {5: 100, 6: 1000, 8: 98, 12: 272, 16: 15, 17: 1000,
+                       18: 908, 20: 14, 43: 81, 50: 525, 51: 12,
+                       60: 1000, 61: 13, 80: 341, 81: 98}
+REF_IJ_SOLVER_RELRES = {5: 9.722794e-09, 6: 6.954759e-01, 8: 8.732218e-09,
                         12: 9.222296e-09, 16: 6.981601e-11,
-                        17: 6.211218e-02, 18: 1.574823e-04,
-                        20: 6.990455e-09, 43: 9.889851e-09,
+                        17: 6.211218e-02, 18: 9.935590e-09,
+                        20: 6.990455e-09, 43: 9.082759e-09,
                         50: 9.794265e-09, 51: 7.466335e-09,
                         60: 6.211218e-02, 61: 2.237597e-09,
-                        80: 9.829014e-09, 81: 9.144086e-09}
+                        80: 9.896696e-09, 81: 9.144086e-09}
 # AMG-CGNR's count wanders with rounding: CG on the normal equations
 # takes ~200 iterations at 100^3, and the port took 201 there on the CPU
 # (its driver with -exec_host) and 200 on the card, where the reference
@@ -802,8 +850,16 @@ def phase_hierarchy_checks(amg, gen, path: str,
     """Every DIA and CSR operator of the hierarchy (A, P, R of each
     level, or the fields `names`) against its kernel's plain version,
     f64 and f32; returns the largest f64 error by kernel."""
+    return phase_ops_checks(hierarchy_ops(amg, (CsrMatrix, DiaMatrix),
+                                          names), gen, path)
+
+
+def phase_ops_checks(ops, gen, path: str) -> dict:
+    """Each (label, DIA or CSR operator) against its kernel's plain
+    version, f64 and f32; returns the largest f64 error by kernel, and
+    under "<kernel> rel" the largest f64 error relative to |A| |x|."""
     results = []
-    for label, A in hierarchy_ops(amg, (CsrMatrix, DiaMatrix), names):
+    for label, A in ops:
         for dtype in (torch.float64, torch.float32):
             if isinstance(A, DiaMatrix):
                 Ad = A if dtype == A.dtype else dataclasses.replace(
@@ -821,9 +877,13 @@ def phase_hierarchy_checks(amg, gen, path: str,
     emit({"phase": "kernel_checks", "set": "hierarchy", "path": path,
           "kernel_names": kernels, "n_checks": len(results),
           "checks": results})
-    return {k: max(r["max_abs_err"] for r in results
-                   if r["kernel"] == k and r["dtype"] == str(torch.float64))
-            for k in kernels}
+    out = {}
+    for k in kernels:
+        f64 = [r for r in results
+               if r["kernel"] == k and r["dtype"] == str(torch.float64)]
+        out[k] = max(r["max_abs_err"] for r in f64)
+        out[f"{k} rel"] = max(r["rel_err"] for r in f64)
+    return out
 
 
 def launches_per_iter(precondition, op) -> dict:
@@ -1745,11 +1805,12 @@ def ij_args(*flags):
 
 def ij_solver_runs(amg, amg_setup_s: float) -> list:
     """(a): every solver id of REF_IJ_SOLVER_ITERS at 100^3 (-solver 5
-    at CGNR_GRID) through drivers.ij.run, the AMG ids at 100^3 on one
-    shared setup."""
+    at CGNR_GRID, PRECOND_CUT at PRECOND_GRID) through drivers.ij.run,
+    the AMG ids at 100^3 on one shared setup."""
     rows = []
     for solver in sorted(REF_IJ_SOLVER_ITERS):
-        n = CGNR_GRID if solver == 5 else IJ_GRID
+        n = (CGNR_GRID if solver == 5 else PRECOND_GRID
+             if solver in PRECOND_CUT else IJ_GRID)
         shared = solver in ij.NEED_AMG and n == IJ_GRID
         reset_counts()
         out = ij.run(ij_args("-n", n, n, n, "-solver", solver),
@@ -2031,6 +2092,29 @@ SPLIT_GRID = 708              # two 708^2 parts: 1,002,528 unknowns
 REF_G = {"sys": (15, 6.965598147451131e-07), "fac": (20, 2.89541678084891),
          "split": (110, 7.529976720714282e-07)}
 STRUCT_TOL = 1e-6
+# the maxwell phase (ex15 and its kin): sizes, and the reference's counts
+# from tools/ams_reference_counts.py as (n, count) at the largest n it
+# finishes on a CPU; a row run at a larger n is held to count + 2
+AMS_GRID = 100                # ex15: 3,060,300 edges, not cut
+ADS_GRID = 18                 # a cut: B_Pi is one dense level (PERF.md)
+MAXWELL_GRID = 100
+AME_GRID = 3                  # a cut of scale: AME's count is robust only
+#                               while its residual floor sits well below
+#                               the tolerance (PERF.md)
+CAPI_GRID = 48                # a cut for the time limit (PERF.md)
+CKPT_GRID = 128
+IR_GRID = 128
+REF_AMS = (40, 18)
+REF_ADS = (18, 12)
+REF_MAXWELL = (40, 19)
+REF_AME = {"iters": 20, "eigenvalues": [2.17157287525381, 2.17157287525381,
+                                        2.171572875254781]}
+REF_CAPI = (48, 8)
+REF_CKPT = 19
+REF_IR = {"outer_iters": 2, "inner_iters_total": 26}
+REF_EXAMPLES = {"ex5": 11, "ex11": 20, "ex_struct": 7, "ex3_pfmg": 20,
+                "ex15_ams": 16, "ex9_systems": [13, 13], "ex6_multibox": 28,
+                "ex_capi": 5}
 
 
 L5 = [((0, 0, 0), 4.0), ((0, 0, -1), -1.0), ((0, 0, 1), -1.0),
@@ -2464,6 +2548,366 @@ def phase_struct(peaks, gen) -> dict:
             "g": g["rows"], "errs": g["errs"], "matvec_timing": timing}
 
 
+# ---------------------------------------------------------------------------
+# maxwell: the auxiliary-space solvers (AMS, ADS, AME), SStruct Maxwell
+# and the API rows (hypre_compat, checkpoints, refinement, the examples)
+# ---------------------------------------------------------------------------
+
+def aux_true_relres(A_op, b, x) -> float:
+    return float(torch.linalg.vector_norm(b - plain_matvec(A_op, x))
+                 / torch.linalg.vector_norm(b))
+
+
+def aux_solve(A_op, M, solves: int, max_iter: int = 200) -> dict:
+    """One warm-up and `solves` timed pcg(tol=1e-8) solves on the card
+    with b = ones (scaled a little each time), launch counts zeroed just
+    before the warm-up and read just after it."""
+    b = torch.ones(A_op.shape[0], dtype=F64, device="cuda")
+    reset_counts()
+    (warm, first_s) = timed(lambda: pcg(A_op, b, M=M, tol=1e-8,
+                                        max_iter=max_iter))
+    launches = read_counts()
+    iters, times, x, bt = [warm.iters], [], warm.x, b
+    for t in range(solves):
+        bt = b * (1.0 + 0.0137 * (t + 1))
+        res, s = timed(lambda: pcg(A_op, bt, M=M, tol=1e-8,
+                                   max_iter=max_iter))
+        times.append(s)
+        iters.append(res.iters)
+        x = res.x
+    hold(not bool(torch.isfinite(x).all()) or x.shape != b.shape,
+         "maxwell: solution not finite or misshapen")
+    return {"iters": warm.iters, "iters_all_solves": iters,
+            "relres": warm.relres, "true_relres": aux_true_relres(
+                A_op, bt, x), "first_solve_s": first_s,
+            "solve_s": statistics.median(times) if times else first_s,
+            "solve_times_s": times, "launches": launches}
+
+
+def hold_iters(tag: str, iters: list, ref: tuple, n: int) -> None:
+    """ref = (n_ref, count): equal at the reference's own size, at most
+    count + 2 at a larger one (the reference cannot finish it here)."""
+    n_ref, count = ref
+    if n == n_ref:
+        hold(set(iters) != {count},
+             f"maxwell ({tag}): iterations {iters}, the reference's "
+             f"{count}")
+    else:
+        hold(max(iters) > count + 2,
+             f"maxwell ({tag}): iterations {iters} at {n}, the "
+             f"reference's {count} at {n_ref} (+2 allowed)")
+
+
+def sub_amg_facts(prefix: str, amg) -> dict:
+    return {f"{prefix}_levels": amg.level_sizes,
+            f"{prefix}_formats": amg.level_formats,
+            f"{prefix}_nnz0": amg.level_nnz[0]}
+
+
+def ams_row(n: int, solves: int = 3) -> dict:
+    """(a): ex15, AMS-PCG on maxwell_3d(n), beta 1."""
+    set_config(Config(real_dtype=F64, device="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    (A, G, Pi), gen_s = timed(lambda: maxwell_3d(n))
+    ams, setup_s = timed(lambda: AMS().setup(A, G, Pi))
+    sol = aux_solve(ams.A_op, ams.precondition, solves)
+    per_iter = launches_per_iter(ams.precondition, ams.A_op)
+    row = {"phase": "maxwell", "run": "a", "case": f"ex15 AMS-PCG "
+           f"maxwell_3d({n})", "dtype": "float64", "edges": A.shape[0],
+           "nodes": G.shape[1], "nodal_vector": Pi.shape[1],
+           "edge_nnz": A.nnz, "A_format": type(ams.A_op).__name__,
+           "gen_s": gen_s, "setup_s": setup_s,
+           **sub_amg_facts("bg", ams.bg), **sub_amg_facts("bpi", ams.bpi),
+           **sol, "launches_per_pcg_iter": per_iter,
+           "reference": REF_AMS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(row)
+    hold(sol["true_relres"] > 1e-8,
+         f"maxwell (a): true relres {sol['true_relres']:.3e}")
+    hold_iters("a", sol["iters_all_solves"], REF_AMS, n)
+    return {"ams": ams, "row": row}
+
+
+def ads_row(n: int, solves: int = 3) -> dict:
+    """(b): ADS-PCG with the inner AMS on rt0_3d(n), beta 1."""
+    torch.cuda.reset_peak_memory_stats()
+    (A, C, Pi_f, G, Pi_e), gen_s = timed(lambda: rt0_3d(n))
+    ads, setup_s = timed(lambda: ADS().setup(A, C, Pi_f, G=G, Pi_e=Pi_e))
+    A_op = sparse_op_from_scipy(A)
+    sol = aux_solve(A_op, ads.precondition, solves)
+    per_iter = launches_per_iter(ads.precondition, A_op)
+    row = {"phase": "maxwell", "run": "b", "case": f"ADS-PCG rt0_3d({n})",
+           "dtype": "float64", "faces": A.shape[0], "face_nnz": A.nnz,
+           "edges": C.shape[1], "A_format": type(A_op).__name__,
+           "gen_s": gen_s, "setup_s": setup_s,
+           **sub_amg_facts("bpi", ads.bpi),
+           **sub_amg_facts("inner_bg", ads.bc_ams.bg),
+           **sub_amg_facts("inner_bpi", ads.bc_ams.bpi),
+           **sol, "launches_per_pcg_iter": per_iter,
+           "reference": REF_ADS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(row)
+    hold(sol["true_relres"] > 1e-8,
+         f"maxwell (b): true relres {sol['true_relres']:.3e}")
+    hold_iters("b", sol["iters_all_solves"], REF_ADS, n)
+    return {"ads": ads, "A_op": A_op, "row": row}
+
+
+def maxwell_row(n: int, solves: int = 1) -> dict:
+    """(c): SStructMaxwell-PCG on maxwell_3d(n), beta 1."""
+    torch.cuda.reset_peak_memory_stats()
+    A, G, _ = maxwell_3d(n)
+    mx, setup_s = timed(lambda: SStructMaxwell().setup(A, G))
+    A_op = sparse_op_from_scipy(A)
+    sol = aux_solve(A_op, mx.precondition, solves)
+    row = {"phase": "maxwell", "run": "c", "case": f"SStructMaxwell-PCG "
+           f"maxwell_3d({n})", "dtype": "float64", "edges": A.shape[0],
+           "edge_levels": mx.level_sizes,
+           "level_formats": [type(lvl["A"]).__name__ for lvl in mx.levels],
+           "setup_s": setup_s, **sol,
+           "launches_per_pcg_iter": launches_per_iter(mx.precondition,
+                                                      A_op),
+           "reference": REF_MAXWELL,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(row)
+    hold(sol["true_relres"] > 1e-8,
+         f"maxwell (c): true relres {sol['true_relres']:.3e}")
+    hold_iters("c", sol["iters_all_solves"], REF_MAXWELL, n)
+    return row
+
+
+def ame_row(n: int) -> dict:
+    """(d): AME, the 3 smallest non-gradient eigenpairs of maxwell_3d(n)
+    (a cut of scale: LOBPCG projects every column with up to 15 nodal
+    PCG steps, so the row is launch-bound)."""
+    A, G, Pi = maxwell_3d(n)
+    reset_counts()
+    ame, setup_s = timed(lambda: AME().setup(A, G, Pi))
+    res, solve_s = timed(lambda: ame.solve(3, tol=1e-6, max_iter=100))
+    launches = read_counts()
+    lam = res.eigenvalues.cpu().numpy()
+    ref_lam = np.array(REF_AME["eigenvalues"])
+    rel = np.abs(lam - ref_lam) / np.abs(ref_lam)
+    row = {"phase": "maxwell", "run": "d", "case": f"AME maxwell_3d({n})",
+           "dtype": "float64", "edges": A.shape[0], "setup_s": setup_s,
+           "solve_s": solve_s, "iters": res.iters,
+           "eigenvalues": lam.tolist(), "reference": REF_AME,
+           "eigenvalue_rel_err": rel.tolist(),
+           "resnorms": res.resnorms.cpu().numpy().tolist(),
+           "launches": launches}
+    emit(row)
+    hold(res.iters != REF_AME["iters"] or rel.max() > 1e-6,
+         f"maxwell (d): {res.iters} iterations and eigenvalues {lam}, "
+         f"the reference's {REF_AME}")
+    return row
+
+
+def aux_ops(prefix: str, obj) -> list:
+    """The CSR and DIA operators of an AMS or ADS: its transfers, its
+    sub-hierarchies' A, P and R (an ADS's inner AMS too)."""
+    ops = []
+    for name in ("A_op", "G", "Gt", "Pi", "Pit", "C", "Ct"):
+        m = getattr(obj, name, None)
+        if isinstance(m, (CsrMatrix, DiaMatrix)):
+            ops.append((f"{prefix} {name}", m))
+    for name in ("bg", "bpi", "bc_amg"):
+        amg = getattr(obj, name, None)
+        if amg is not None:
+            ops += [(f"{prefix} {name} {label}", m) for label, m in
+                    hierarchy_ops(amg, (CsrMatrix, DiaMatrix))]
+    if getattr(obj, "bc_ams", None) is not None:
+        ops += aux_ops(f"{prefix} inner", obj.bc_ams)
+    return ops
+
+
+def api_rows(gen) -> list:
+    """(f): the ex_capi flow at CAPI_GRID^3, a save_amg/load_amg round
+    trip at CKPT_GRID^3, ir_solve with an f32 inner AMG-PCG at
+    IR_GRID^3, and every ported example at its test size."""
+    rows = []
+    set_config(Config(real_dtype=F64, device="cuda"))
+
+    def capi(A, b):
+        precond = H.HYPRE_BoomerAMGCreate()
+        H.HYPRE_BoomerAMGSetCoarsenType(precond, 6)
+        H.HYPRE_BoomerAMGSetRelaxType(precond, 6)
+        H.HYPRE_BoomerAMGSetNumSweeps(precond, 1)
+        H.HYPRE_BoomerAMGSetTol(precond, 0.0)
+        H.HYPRE_BoomerAMGSetMaxIter(precond, 1)
+        solver = H.HYPRE_ParCSRPCGCreate()
+        H.HYPRE_PCGSetMaxIter(solver, 1000)
+        H.HYPRE_PCGSetTol(solver, 1e-7)
+        H.HYPRE_PCGSetPrecond(solver, precond_handle=precond)
+        H.HYPRE_ParCSRPCGSetup(solver, A, b)
+        x = H.HYPRE_ParCSRPCGSolve(solver, A, b)
+        return precond, solver, x
+
+    for n in sorted({REF_CAPI[0], CAPI_GRID}):
+        A = laplacian(n, n, n)
+        b = np.ones(A.shape[0])
+        reset_counts()
+        (precond, solver, x), wall_s = timed(lambda: capi(A, b))
+        launches = read_counts()
+        it = H.HYPRE_PCGGetNumIterations(solver)
+        true_rel = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+        rows.append({
+            "phase": "maxwell", "run": "f capi", "grid": [n, n, n],
+            "levels": precond.amg.level_sizes, "wall_s": wall_s,
+            "iters": it, "reference": REF_CAPI,
+            "relres": H.HYPRE_PCGGetFinalRelativeResidualNorm(solver),
+            "true_relres": true_rel, "launches": launches})
+        emit(rows[-1])
+        hold(true_rel > 1e-6, f"maxwell (f capi): relres {true_rel:.3e}")
+        hold_iters("f capi", [it], REF_CAPI, n)
+        del precond, solver, A
+
+    n = CKPT_GRID
+    A = laplacian(n, n, n)
+    amg, setup_s = timed(lambda: BoomerAMG(AmgConfig(interp_type=6))
+                         .setup(A))
+    op = sparse_op_from_scipy(A)
+    bt = torch.ones(A.shape[0], dtype=F64, device="cuda")
+    r1 = pcg(op, bt, M=amg, tol=1e-8, max_iter=100)
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "amg.npz")
+        _, save_s = timed(lambda: save_amg(amg, path))
+        size_mb = Path(path).stat().st_size / 1e6
+        amg2, load_s = timed(lambda: load_amg(path))
+    r2 = pcg(op, bt, M=amg2, tol=1e-8, max_iter=100)
+    same = bool(torch.equal(r1.x, r2.x))
+    rows.append({"phase": "maxwell", "run": "f checkpoint",
+                 "grid": [n, n, n], "levels": amg.level_sizes,
+                 "level_formats": amg2.level_formats, "setup_s": setup_s,
+                 "save_s": save_s, "load_s": load_s, "file_mb": size_mb,
+                 "iters": [r1.iters, r2.iters],
+                 "reference_iters": REF_CKPT, "x_bit_for_bit": same,
+                 "true_relres": aux_true_relres(op, bt, r2.x)})
+    emit(rows[-1])
+    hold(r1.iters != r2.iters or not same or r1.iters != REF_CKPT,
+         f"maxwell (f checkpoint): iterations {r1.iters}/{r2.iters}, x "
+         f"equal {same}, the reference's {REF_CKPT}")
+    del amg, amg2, op, r1, r2
+
+    n = IR_GRID
+    A = laplacian(n, n, n)
+    b = np.ones(A.shape[0])
+    set_config(Config(real_dtype=torch.float32, device="cuda"))
+    amg32, setup_s = timed(lambda: BoomerAMG(AmgConfig(interp_type=6))
+                           .setup(A))
+    op32 = sparse_op_from_scipy(A)
+
+    def inner(r32):
+        res = pcg(op32, torch.as_tensor(r32, device="cuda"), M=amg32,
+                  tol=1e-6, max_iter=50)
+        return res.x, res.iters
+
+    reset_counts()
+    out, ir_s = timed(lambda: ir_solve(
+        lambda v: stencil_apply_f64((n, n, n), LAPLACE_7PT, v), b, inner,
+        tol=1e-8))
+    launches = read_counts()
+    set_config(Config(real_dtype=F64, device="cuda"))
+    true_rel = float(np.linalg.norm(b - A @ out["x"]) / np.linalg.norm(b))
+    rows.append({"phase": "maxwell", "run": "f ir_solve", "grid": [n] * 3,
+                 "inner_dtype": "float32", "inner_format":
+                 type(op32).__name__, "setup_s": setup_s, "wall_s": ir_s,
+                 "outer_iters": out["outer_iters"],
+                 "inner_iters_total": out["inner_iters_total"],
+                 "reference": REF_IR, "relres": out["relres"],
+                 "true_relres_f64": true_rel, "launches": launches})
+    emit(rows[-1])
+    hold(out["relres"] > 1e-8 or true_rel > 1.1e-8
+         or out["outer_iters"] != REF_IR["outer_iters"],
+         f"maxwell (f ir_solve): {out['outer_iters']} outer and "
+         f"{out['inner_iters_total']} inner iterations, relres "
+         f"{out['relres']:.3e} (true {true_rel:.3e}), the reference's "
+         f"{REF_IR}")
+    del amg32, op32, A
+
+    got = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        reset_counts()
+        t0 = time.perf_counter()
+        got["ex5"] = ex5.main(n=20).iters
+        got["ex11"] = ex11.main(n=16, m=2).iters
+        got["ex_struct"] = ex_struct.main(n=16).iters
+        got["ex3_pfmg"] = ex3_pfmg.main(n=32)
+        got["ex15_ams"] = ex15_ams.main(n=6)
+        got["ex9_systems"] = [ex9_systems.main(n=24),
+                              ex9_systems.main(n=48)]
+        ex_lobpcg.main(n=16, nev=3)
+        got["ex6_multibox"] = ex6_multibox.main(n=12)[0]
+        got["ex_capi"] = ex_capi.main(n=20)
+        wall_s = time.perf_counter() - t0
+        launches = read_counts()
+    rows.append({"phase": "maxwell", "run": "f examples", "iters": got,
+                 "reference_iters": REF_EXAMPLES, "wall_s": wall_s,
+                 "launches": launches})
+    emit(rows[-1])
+    hold(got != REF_EXAMPLES,
+         f"maxwell (f examples): {got}, the reference's {REF_EXAMPLES}")
+    return rows
+
+
+def phase_maxwell(gen) -> dict:
+    """The auxiliary-space rows (a)-(d), the checks (e) and the API rows
+    (f) on the card; each row's objects are dropped before the next."""
+    t0 = time.perf_counter()
+    n_held = REF_AMS[0]
+    if n_held != AMS_GRID:
+        ams_row(n_held, solves=0)
+    a = ams_row(AMS_GRID)
+    checks = phase_ops_checks(aux_ops("ams", a["ams"]), gen,
+                              f"ex15 AMS maxwell_3d({AMS_GRID})")
+    r = torch.ones(a["ams"].A_op.shape[0], dtype=F64, device="cuda")
+
+    def run():
+        a["ams"].precondition(r)
+        matvec(a["ams"].A_op, r)
+        return {}
+
+    phase_profile(f"ex15 AMS-PCG maxwell_3d({AMS_GRID})", run,
+                  "one AMS application and one A x")
+    hold(a["row"]["launches"]["csr_spmv"] == 0
+         or a["row"]["launches"]["dia_matvec"] == 0,
+         "maxwell (a): K2 or K3 not launched on the AMS path")
+    del a["ams"], r
+    torch.cuda.empty_cache()
+    if REF_ADS[0] != ADS_GRID:
+        ads_row(REF_ADS[0], solves=0)
+    b = ads_row(ADS_GRID)
+    ads_ops = aux_ops("ads", b["ads"])
+    if isinstance(b["A_op"], (CsrMatrix, DiaMatrix)):
+        ads_ops.append(("ads A_op", b["A_op"]))
+    checks_b = phase_ops_checks(ads_ops, gen, f"ADS rt0_3d({ADS_GRID})")
+    for k, v in checks_b.items():
+        checks[k] = max(checks.get(k, 0.0), v)
+    hold(b["row"]["launches"]["csr_spmv"] == 0,
+         "maxwell (b): K2 not launched on the ADS path")
+    rb = torch.ones(b["A_op"].shape[0], dtype=F64, device="cuda")
+
+    def run_b():
+        b["ads"].precondition(rb)
+        matvec(b["A_op"], rb)
+        return {}
+
+    phase_profile(f"ADS-PCG rt0_3d({ADS_GRID})", run_b,
+                  "one ADS application and one A x")
+    b_row = b["row"]
+    del b, rb
+    torch.cuda.empty_cache()
+    if REF_MAXWELL[0] != MAXWELL_GRID:
+        maxwell_row(REF_MAXWELL[0], solves=0)
+    c = maxwell_row(MAXWELL_GRID)
+    torch.cuda.empty_cache()
+    d = ame_row(AME_GRID)
+    f = api_rows(gen)
+    emit({"phase": "maxwell", "run": "all",
+          "wall_s": time.perf_counter() - t0})
+    return {"a": a["row"], "b": b_row, "c": c, "d": d, "f": f,
+            "errs": checks}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2510,6 +2954,12 @@ def main() -> int:
     breadth = phase_amg_breadth(gen)
     solvers = phase_ij_solvers(gen, card["peaks"])
     struct = phase_struct(card["peaks"], gen)
+    aux = phase_maxwell(gen)
+    aux_launches = {f"launches_maxwell_{tag}": aux[tag]["launches"]
+                    for tag in ("a", "b", "c")}
+    aux_per_iter = {f"launches_per_pcg_iter_maxwell_{tag}":
+                    aux[tag]["launches_per_pcg_iter"]
+                    for tag in ("a", "b", "c")}
     out22 = {f"launches_out22_{tag}_{when}": breadth[tag][f"launches_{when}"]
              for tag in ("a", "b") for when in ("setup", "solves")}
     kernels = []
@@ -2562,6 +3012,15 @@ def main() -> int:
         row.update(other)
         if name not in ("dia_matvec", "csr_spmm"):
             row.update({k: v[name] for k, v in out22.items()})
+        if name in ("csr_spmv", "dia_matvec"):
+            # the maxwell phase's (a) AMS, (b) ADS and (c) Maxwell runs;
+            # ex15's B_Pi carries entries near 1e31 (the reference's ext+i
+            # on the shifted, rank-deficient Pi^T A Pi), so its checks'
+            # absolute errors are large at a relative error near 1e-16
+            row.update({k: v[name] for k, v in aux_launches.items()})
+            row.update({k: v[name] for k, v in aux_per_iter.items()})
+            row["max_abs_err_maxwell"] = aux["errs"][name]
+            row["max_rel_err_maxwell"] = aux["errs"][f"{name} rel"]
         kernels.append(row)
     emit({"kernels": kernels})
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

@@ -23,12 +23,16 @@ ops      — solve-phase operators (stencil, DIA, CSR, dense), the block
            product matmat, and the device setup's gather (btake)
 solvers  — BoomerAMG; PCG, GMRES, FlexGMRES, LGMRES, COGMRES, BiCGSTAB,
            CGNR; LOBPCG; the hybrid solver; FSAI, ParaSails, ILU,
-           Schwarz and MGR preconditioners
+           Schwarz and MGR preconditioners; AMS, ADS, AME (ams) and
+           SStruct Maxwell (maxwell); iterative refinement (refine)
 struct   — structured grids: the struct matrix, PFMG, SMG, SparseMSG,
            SysPFMG, multi-box grids, FAC (setup numpy on the host,
            cycles torch on the device); sstruct — parts, graph, Split
 drivers  — hypre's ij and struct drivers; testing — their golden harness
 ij, mmio — IJ assembly and Matrix Market I/O (numpy)
+hypre_compat — the HYPRE_* C-API call surface; core.checkpoint — AMG
+           hierarchies saved and restored (npz + JSON, no pickle)
+examples — hypre's examples on the port
 convert  — carries hypre_tpu state (as numpy arrays) across
 """
 

@@ -38,6 +38,13 @@ state.
 ``struct_matrix_from_numpy`` carries a reference StructMatrix (its
 coefficient arrays as numpy) across, so both packages' struct solvers
 can be built from one operator.
+
+``ams_from_numpy`` builds the port's AMS (or, with ``inner``, ADS) from
+the reference's set-up state: its two sub-hierarchies (each as
+``hierarchy_from_numpy`` takes it), the transfer matrices and the
+inverse l1 norms.  ``maxwell_from_numpy`` does so for SStructMaxwell:
+each level's operators (convert's dicts), inverse norms and the coarse
+pseudo-inverse.
 """
 from __future__ import annotations
 
@@ -257,3 +264,78 @@ def struct_matrix_from_numpy(coefs, offsets, shape, periodic=(0, 0, 0),
         offsets=tuple(tuple(int(v) for v in off) for off in offsets),
         shape=tuple(int(v) for v in shape),
         periodic=tuple(int(v) for v in periodic))
+
+
+def amg_from_numpy(h: dict, config=None):
+    """A BoomerAMG around a reference hierarchy: h holds "levels",
+    "c_lu" and "c_piv" as hierarchy_from_numpy takes them; the relax
+    knobs come from config (an AmgConfig)."""
+    from hypre_tpu_torch.solvers.amg import AmgConfig, BoomerAMG
+
+    amg = BoomerAMG(config or AmgConfig())
+    cfg = amg.config
+    amg.hierarchy = hierarchy_from_numpy(
+        h["levels"], h["c_lu"], h["c_piv"], relax_weight=cfg.relax_weight,
+        num_sweeps=cfg.num_sweeps, relax_type=cfg.relax_type)
+    amg.level_sizes = [lvl.A.shape[0] for lvl in amg.hierarchy.levels]
+    return amg
+
+
+def ams_from_numpy(bg: dict, bpi: dict, G: sp.csr_matrix,
+                   Pi: sp.csr_matrix, dinv, A: sp.csr_matrix | None = None,
+                   config=None, inner=None):
+    """The port's AMS with the reference's state: bg and bpi are the
+    sub-hierarchies of G^T A G and Pi^T A Pi (amg_from_numpy's dicts), G
+    and Pi the scipy transfers, dinv the inverse l1 norms of A (the
+    edge smoother), A the edge matrix (its operator, optional).
+
+    With inner (a port AMS for the edge space, or a dict of a plain
+    BoomerAMG) the result is an ADS instead: bg is then unused, G is the
+    discrete curl C and Pi the nodal-vector to face interpolation."""
+    from hypre_tpu_torch.core.config import as_real
+    from hypre_tpu_torch.ops.formats import sparse_op_from_scipy
+    from hypre_tpu_torch.solvers.ams import ADS, AMS, _transfer_ops
+
+    cls = AMS if inner is None else ADS
+    out = cls(config)
+    out.bpi = amg_from_numpy(bpi, out.config.amg)
+    out.dinv = as_real(np.array(dinv, dtype=np.float64))
+    if inner is None:
+        out.bg = amg_from_numpy(bg, out.config.amg)
+        ops = _transfer_ops((("G", sp.csr_matrix(G)),
+                             ("Pi", sp.csr_matrix(Pi))))
+        out.G, out.Gt = ops["G"], ops["Gt"]
+    else:
+        if isinstance(inner, AMS):
+            out.bc_ams = inner
+        else:
+            out.bc_amg = amg_from_numpy(inner, out.config.amg)
+        ops = _transfer_ops((("C", sp.csr_matrix(G)),
+                             ("Pi", sp.csr_matrix(Pi))))
+        out.C, out.Ct = ops["C"], ops["Ct"]
+    out.Pi, out.Pit = ops["Pi"], ops["Pit"]
+    if A is not None:
+        out.A_op = sparse_op_from_scipy(sp.csr_matrix(A))
+    return out
+
+
+def maxwell_from_numpy(levels, c_inv, config=None):
+    """The port's SStructMaxwell with the reference's levels: one dict
+    a level with "A", "G", "GT", "Pe" and "PeT" (operator dicts; "Pe"
+    and "PeT" None on the coarsest level) and "de", "dn" (the inverse
+    edge and nodal l1 norms, numpy); c_inv the coarse pseudo-inverse."""
+    from hypre_tpu_torch.core.config import as_real
+    from hypre_tpu_torch.solvers.maxwell import SStructMaxwell
+
+    out = SStructMaxwell(config)
+    dtype, device = get_config().real_dtype, get_device()
+    out.levels = []
+    for lvl in levels:
+        d = {k: None if lvl.get(k) is None
+             else operator_from_numpy(lvl[k], dtype, device)
+             for k in ("A", "G", "GT", "Pe", "PeT")}
+        d["de"] = as_real(np.array(lvl["de"], dtype=np.float64))
+        d["dn"] = as_real(np.array(lvl["dn"], dtype=np.float64))
+        out.levels.append(d)
+    out.c_inv = as_real(np.array(c_inv, dtype=np.float64))
+    return out

@@ -1,0 +1,13 @@
+"""hypre's examples on the port, each a ``main(...)`` with the signature
+and return value of its counterpart in the repository's ``examples/``
+(the reference's, on hypre_tpu).  Each runs on the configured device:
+the card by default, the CPU after ``set_config(Config(device="cpu"))``.
+
+    python -m hypre_tpu_torch.examples.ex15_ams
+
+ex5 (IJ + AMG-PCG), ex11 (LOBPCG + AMG), ex_struct (CG + PFMG), ex3_pfmg
+(PFMG alone), ex15_ams (AMS-PCG), ex9_systems (systems AMG-GMRES),
+ex_lobpcg (LOBPCG, analytic eigenvalues), ex6_multibox (PFMG on an
+L-shaped box union) and ex_capi (the HYPRE_* call surface).  The
+distributed example (ex_multichip) belongs to the port's distributed
+slice."""

@@ -14,3 +14,5 @@ from hypre_tpu_torch.solvers.parasails import (  # noqa: F401
 from hypre_tpu_torch.solvers.ilu import ILU, IluConfig  # noqa: F401
 from hypre_tpu_torch.solvers.schwarz import Schwarz, SchwarzConfig  # noqa: F401
 from hypre_tpu_torch.solvers.mgr import MGR, MgrConfig  # noqa: F401
+from hypre_tpu_torch.solvers.ams import AMS, AmsConfig  # noqa: F401
+from hypre_tpu_torch.solvers.ams import ADS, AME  # noqa: F401

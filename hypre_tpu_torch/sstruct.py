@@ -11,9 +11,11 @@ The assembled object can be
     part (PFMG/SMG) as a preconditioner, inter-part couplings handled
     by the outer Krylov iteration.
 
-FAC (composite-grid AMR, ref: src/sstruct_ls/fac_setup2.c:19) is
-re-exported here as in the reference; its Maxwell solver re-export
-waits for the port's auxiliary-space slice.
+FAC (composite-grid AMR, ref: src/sstruct_ls/fac_setup2.c:19) and
+Maxwell (edge multigrid with Hiptmair smoothing, ref:
+maxwell_TV_setup.c:25) live with their machinery but are re-exported
+here, as in the reference (hypre_tpu/sstruct.py:135): they belong to
+the HYPRE_SStructSolver surface.
 """
 from __future__ import annotations
 
@@ -127,3 +129,6 @@ class SplitSolver:
 
 
 from hypre_tpu_torch.struct.fac import FAC, FacConfig  # noqa: E402,F401
+from hypre_tpu_torch.solvers.maxwell import (  # noqa: E402,F401
+    MaxwellConfig, SStructMaxwell,
+)

@@ -25,7 +25,9 @@ each column of Y bit for bit K2's on that column of X;
 LOBPCG and ILU-PCG run on the card and on the CPU at 16^3 (the same
 iterations; eigenvalues to 1e-10, x to 1e-10 relative), and so does the
 struct driver (CG+PFMG, 2-D and 3-D CG+SMG, PFMG RB-GS: the same
-iterations, x to 1e-10 relative)."""
+iterations, x to 1e-10 relative) and the auxiliary-space solvers
+(AMS and SStructMaxwell at maxwell_3d(12), ADS with its inner AMS at
+rt0_3d(8): the same iterations, x to 1e-10 relative)."""
 import dataclasses
 
 import numpy as np
@@ -564,3 +566,41 @@ def test_struct_driver_on_card_matches_cpu(card, flags):
     assert out["x"].device.type == "cuda"
     assert out["iters"] == cpu["iters"]
     assert rel_diff(out["x"].cpu().numpy(), cpu["x"].numpy()) <= 1e-10
+
+
+AUX_CASES = {
+    # ex15's AMS: CSR edge matrix, DIA B_G level 0, CSR transfers
+    "ams": lambda: _aux_solve("ams", 12),
+    # ADS with the inner AMS: B_Pi one dense level (the coarse LU)
+    "ads": lambda: _aux_solve("ads", 8),
+    "maxwell": lambda: _aux_solve("maxwell", 12),
+}
+
+
+def _aux_solve(kind: str, n: int):
+    from hypre_tpu_torch.ops import sparse_op_from_scipy
+    from hypre_tpu_torch.solvers.ams import ADS, AMS, maxwell_3d, rt0_3d
+    from hypre_tpu_torch.sstruct import SStructMaxwell
+
+    if kind == "ads":
+        A, C, Pi_f, G, Pi_e = rt0_3d(n)
+        M = ADS().setup(A, C, Pi_f, G=G, Pi_e=Pi_e)
+    else:
+        A, G, Pi = maxwell_3d(n)
+        M = AMS().setup(A, G, Pi) if kind == "ams" \
+            else SStructMaxwell().setup(A, G)
+    res = pcg(sparse_op_from_scipy(A), np.ones(A.shape[0]),
+              M=M.precondition, tol=1e-8, max_iter=200)
+    return res.iters, res.x.cpu().numpy()
+
+
+@pytest.mark.parametrize("kind", sorted(AUX_CASES))
+def test_aux_space_solvers_on_card_match_cpu(card, kind):
+    """AMS, ADS and SStructMaxwell PCG: the card takes the CPU's
+    iterations, x within 1e-10 relative."""
+    out = {}
+    for device in ("cuda", "cpu"):
+        set_config(Config(device=device))
+        out[device] = AUX_CASES[kind]()
+    assert out["cuda"][0] == out["cpu"][0]
+    assert rel_diff(out["cuda"][1], out["cpu"][1]) <= 1e-10

@@ -37,7 +37,17 @@ def test_import_leaves_out_jax_and_reference():
         "hypre_tpu_torch.ops.trisolve, hypre_tpu_torch.drivers.ij, "
         "hypre_tpu_torch.testing.runtest, hypre_tpu_torch.struct, "
         "hypre_tpu_torch.sstruct, hypre_tpu_torch.drivers.struct, "
-        "hypre_tpu_torch.ops.tridiag\n"
+        "hypre_tpu_torch.ops.tridiag, hypre_tpu_torch.solvers.ams, "
+        "hypre_tpu_torch.solvers.maxwell, hypre_tpu_torch.solvers.refine, "
+        "hypre_tpu_torch.hypre_compat, hypre_tpu_torch.core.checkpoint, "
+        "hypre_tpu_torch.examples.ex5, hypre_tpu_torch.examples.ex11, "
+        "hypre_tpu_torch.examples.ex_struct, "
+        "hypre_tpu_torch.examples.ex3_pfmg, "
+        "hypre_tpu_torch.examples.ex15_ams, "
+        "hypre_tpu_torch.examples.ex9_systems, "
+        "hypre_tpu_torch.examples.ex_lobpcg, "
+        "hypre_tpu_torch.examples.ex6_multibox, "
+        "hypre_tpu_torch.examples.ex_capi\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'hypre_tpu' or m.startswith('hypre_tpu.')]\n"
         "assert not bad, bad\n"
@@ -56,7 +66,7 @@ def test_sources_never_name_jax_or_reference_modules():
 
 
 @pytest.mark.parametrize("call", ["setup", "pcg", "operator", "pfmg", "smg",
-                                  "struct_driver"])
+                                  "struct_driver", "ams", "maxwell", "capi"])
 def test_default_device_without_card_raises(call):
     """The default device is cuda; with no card, entry points raise
     instead of running on the CPU."""
@@ -69,7 +79,11 @@ def test_default_device_without_card_raises(call):
         "from hypre_tpu_torch.solvers import AmgConfig, BoomerAMG, pcg\n"
         "from hypre_tpu_torch.drivers import struct\n"
         "from hypre_tpu_torch.struct import PFMG, SMG, StructMatrix\n"
+        "from hypre_tpu_torch import hypre_compat as H\n"
+        "from hypre_tpu_torch.solvers.ams import AMS, maxwell_3d\n"
+        "from hypre_tpu_torch.sstruct import SStructMaxwell\n"
         "A = laplacian(6, 6, 6)\n"
+        "Ae, G, Pi = maxwell_3d(3)\n"
         "S = StructMatrix(torch.ones(1, 4, 4, 4, dtype=torch.float64),\n"
         "                 ((0, 0, 0),), (4, 4, 4))\n"
         "calls = {'setup': lambda: BoomerAMG(AmgConfig()).setup(A),\n"
@@ -79,7 +93,11 @@ def test_default_device_without_card_raises(call):
         "         'smg': lambda: SMG().setup(S),\n"
         "         'struct_driver': lambda: struct.run(\n"
         "             struct.build_parser().parse_args(['-n', '4', '4', '4',\n"
-        "                                               '-solver', '11']))}\n"
+        "                                               '-solver', '11'])),\n"
+        "         'ams': lambda: AMS().setup(Ae, G, Pi),\n"
+        "         'maxwell': lambda: SStructMaxwell().setup(Ae, G),\n"
+        "         'capi': lambda: H.HYPRE_BoomerAMGSetup(\n"
+        "             H.HYPRE_BoomerAMGCreate(), A)}\n"
         "try:\n"
         f"    calls[{call!r}]()\n"
         "except HypreTpuError as e:\n"
