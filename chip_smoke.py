@@ -202,6 +202,36 @@ Phases, each printing one JSON line:
              Every other count equals the reference's
              (tools/ams_reference_counts.py).
 
+19. distributed — the distributed layer (hypre_tpu_torch/parallel,
+             solvers/par_amg.py, struct/par_struct.py) in f64 on the card,
+             every shard stacked in one process (StackedComm): (a) the
+             repository's dryrun_multichip analog at 12^3 on 8 shards
+             (ex_multichip.dryrun_multichip), held to MULTICHIP_r05.json's
+             15 / 13 / 12 iterations, relres and levels; the same V-PCG at
+             2, 4 and 8 shards with its launches a PCG iteration, which
+             must not change with the shard count; (b) ex_multichip at
+             24^3; (c) out.14 (256^3, the main path's AmgConfig and stencil
+             fine level) on 8 stacked shards through ParBoomerAMG.setup and
+             solve_sharded: the reference's levels and operator
+             complexity, the main path's iterations, true relres <= 1e-8,
+             setup_s, solve_s (median of 3 after a warm-up) and peak memory
+             beside the main path's; K2 against its plain version on every
+             stacked diag and offd block of every A, P and R, f64 and f32;
+             (e) the 128^3 Laplacian assembled by ParIJMatrix from
+             off-process entries only, exactly scipy's; (d)
+             setup_distributed on it (interp 6, relax 18, stencil fine
+             level): C/F splits equal at every level to those of
+             setup_device on the same matrix (its slots in the same
+             order), the PCG count within 1 of its, K2 on every block;
+             (f) CG + ParPFMG at 128^3 (REF_PAR_PFMG_CG), CG +
+             ParSMG at 32^3 (OUT3_HELD) and 64^3 (the single-device
+             count), ParSysPFMG at 2 x 80^3 (REF_G["sys"]), each with its
+             exchanges and all_gathers a cycle, and AMG-DD at 64^3
+             (REF_PAR_AMGDD) with one composite gather an outer iteration
+             and K2 on its composite operators; (g) a DistComm on a
+             world-size-1 NCCL group, (a)'s V-PCG equal to the stacked run
+             with 1 shard.  The phase prints its wall_s.
+
 Then the kernels line, nvidia-smi's line, and the last line
 {"ok": true, "device": {...}}.  Any failed check raises: nothing is
 caught and carried on.
@@ -250,6 +280,7 @@ from hypre_tpu_torch.setup import device_amg as dev
 from hypre_tpu_torch.setup.utils import native_enabled
 from hypre_tpu_torch.solvers import AmgConfig, BoomerAMG, pcg
 from hypre_tpu_torch.solvers.ams import ADS, AME, AMS, maxwell_3d, rt0_3d
+from hypre_tpu_torch.solvers.par_amg import ParBoomerAMG
 from hypre_tpu_torch.solvers.refine import ir_solve, stencil_apply_f64
 from hypre_tpu_torch.drivers import struct as struct_driver
 from hypre_tpu_torch.ops.formats import sparse_op_from_scipy
@@ -2908,6 +2939,427 @@ def phase_maxwell(gen) -> dict:
             "errs": checks}
 
 
+# ---------------------------------------------------------------------------
+# distributed: the ParCSR layer on stacked shards (and NCCL at world size 1)
+# ---------------------------------------------------------------------------
+
+# dryrun_multichip(8) at 12^3: MULTICHIP_r05.json (the reference on 8
+# virtual devices) and `python tools/par_reference_counts.py card`
+REF_PAR_DRYRUN = {"pcg": 15, "relres": 6.8887290404738325e-09, "gmres_w": 13,
+                  "dist_pcg": 12, "levels": [1728, 597, 126, 24, 2]}
+PAR_SHARDS = 8
+PAR_GRID = 256               # out.14 on 8 stacked shards, not cut
+PAR_SETUP_GRID = 128         # setup_distributed and ParIJ (item (d), (e))
+
+
+def par_solves(pamg, n_rows: int, plain, max_iter: int = 100) -> dict:
+    """One warm-up and three timed ParBoomerAMG-PCG solves (b = ones,
+    scaled a little each time) on the card, sharded; the true relative
+    residual of the last with A x by `plain` on the global x."""
+    b = torch.ones(n_rows, dtype=F64, device="cuda")
+    part = pamg.fine_part
+    b_sh = torch.zeros(part.n_padded, dtype=F64, device="cuda")
+    b_sh[:n_rows] = b
+    b_sh = b_sh.reshape(part.n_shards, part.n_local)
+    warm = pamg.solve_sharded(b_sh, tol=1e-8, max_iter=max_iter)
+    iters, times = [warm.iters], []
+    for t in range(3):
+        bt = b_sh * (1.0 + 0.0137 * (t + 1))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = pamg.solve_sharded(bt, tol=1e-8, max_iter=max_iter)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        iters.append(res.iters)
+    x = res.x.reshape(-1)[:n_rows]
+    if not bool(torch.isfinite(x).all()):
+        raise AssertionError("distributed solution is not finite")
+    bg = bt.reshape(-1)[:n_rows]
+    true_relres = float(torch.linalg.vector_norm(bg - plain(x))
+                        / torch.linalg.vector_norm(bg))
+    solve_s = statistics.median(times)
+    return {"iters": res.iters, "iters_all_solves": iters,
+            "relres": res.relres, "true_relres": true_relres,
+            "solve_s": solve_s, "solve_times_s": times,
+            "per_iter_ms": solve_s / max(res.iters, 1) * 1e3}
+
+
+def par_ops(pamg) -> list:
+    """Every stacked block of a ParBoomerAMG hierarchy: diag and offd of
+    each A, P and R, and the two-stage triangles."""
+    ops = []
+    for l, lvl in enumerate(pamg.hierarchy.levels):
+        for name in ("A", "P", "R"):
+            M = getattr(lvl, name)
+            if M is not None:
+                ops += [(f"{name}{l}.{blk}", C) for blk, C in M.blocks()
+                        if C.nnz]
+        for name in ("L", "U"):
+            if getattr(lvl, name) is not None:
+                ops.append((f"{name}{l}", getattr(lvl, name)))
+    return ops
+
+
+def par_launches_per_iter(pamg) -> dict:
+    part = pamg.fine_part
+    r = torch.ones((part.n_shards, part.n_local), dtype=F64, device="cuda")
+    reset_counts()
+    pamg.precondition(r)
+    pamg.fine_matvec(r)
+    torch.cuda.synchronize()
+    out = read_counts()
+    reset_counts()
+    return out
+
+
+def par_dryrun_rows() -> dict:
+    """(a) the dryrun analog at 12^3 on 8 stacked shards, held to the
+    reference's counts, and the V-PCG at 2, 4 and 8 shards: its launches
+    a PCG iteration must not depend on the shard count."""
+    from hypre_tpu_torch.examples.ex_multichip import dryrun_multichip
+
+    out = dryrun_multichip(PAR_SHARDS)
+    ref = REF_PAR_DRYRUN
+    bad = [k for k in ("gmres_w", "dist_pcg", "levels")
+           if out[k] != ref[k]]
+    if out["pcg"] != ref["pcg"] or out["single_pcg"] != ref["pcg"]:
+        bad.append("pcg")
+    if abs(out["relres"] - ref["relres"]) > 1e-3 * ref["relres"]:
+        bad.append("relres")
+    per_iter = {}
+    A = laplacian(12, 12, 12)
+    for ns in (2, 4, 8):
+        pamg = ParBoomerAMG(ns, AmgConfig()).setup(A)
+        _, it, _ = pamg.solve_pcg(np.ones(A.shape[0]), tol=1e-8)
+        if it != ref["pcg"]:
+            bad.append(f"pcg at {ns} shards: {it}")
+        per_iter[ns] = par_launches_per_iter(pamg)
+    if len({json.dumps(v, sort_keys=True) for v in per_iter.values()}) != 1:
+        bad.append("launches a PCG iteration differ with the shard count")
+    row = {"phase": "distributed", "row": "a", "case":
+           "dryrun_multichip at 12^3, 8 stacked shards", **out,
+           "launches_per_pcg_iter_by_shards": per_iter,
+           "reference": ref}
+    emit(row)
+    hold(bool(bad), f"distributed (a) differs from the reference: {bad}")
+    return row
+
+
+def par_out14(main_out: dict, gen) -> dict:
+    """(c) out.14 at full width on 8 stacked shards through the entry
+    points, the main path's configuration and stencil fine level."""
+    n = PAR_GRID
+    A = laplacian(n, n, n)
+    cfg = AmgConfig(interp_type=6, relax_type=18)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    pamg = ParBoomerAMG(PAR_SHARDS, cfg).setup(
+        A, fine_stencil=((n, n, n), LAPLACE_7PT))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_launches = read_counts()
+    del A
+    op = stencil_op((n, n, n), LAPLACE_7PT, dtype=F64)
+    reset_counts()
+    sol = par_solves(pamg, n ** 3, lambda x: stencil_matvec_plain(op, x))
+    launches = read_counts()
+    per_iter = par_launches_per_iter(pamg)
+    row = {"phase": "distributed", "row": "c", "grid": [n, n, n],
+           "shards": PAR_SHARDS, "levels": pamg.level_sizes,
+           "operator_complexity": round(pamg.operator_complexity, 3),
+           "setup_s": setup_s, "setup_stats": pamg.setup_stats, **sol,
+           "launches_setup": setup_launches, "launches": launches,
+           "launches_per_pcg_iter": per_iter,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "single_device_main_path": {
+               k: main_out[k] for k in ("iters", "setup_s", "solve_s",
+                                        "per_iter_ms", "peak_mem_gb")}}
+    emit(row)
+    hold(pamg.level_sizes != REF_LEVELS or round(
+        pamg.operator_complexity, 3) != REF_OPERATOR_COMPLEXITY,
+        "distributed (c): hierarchy differs from the reference's")
+    hold(sol["iters"] != main_out["iters"],
+         f"distributed (c): {sol['iters']} iterations, the single-device "
+         f"main path {main_out['iters']}")
+    hold(sol["true_relres"] > 1e-8,
+         f"distributed (c): true relres {sol['true_relres']:.3e}")
+    hold(launches["csr_spmv"] == 0, "distributed (c): K2 not launched")
+    errs = phase_ops_checks(par_ops(pamg), gen, "distributed out.14, "
+                            f"{PAR_SHARDS} stacked shards")
+    return {"row": row, "errs": errs, "launches": launches}
+
+
+def par_setup_rows(gen) -> dict:
+    """(e) ParIJ: the 128^3 Laplacian assembled from per-shard
+    off-process entries, exactly scipy's; (d) setup_distributed on it
+    (7-pt, interp 6, relax 18): C/F splits equal to the single-device
+    device setup's at every level, the PCG count within 1."""
+    from hypre_tpu_torch.parallel.ij_par import ParIJMatrix
+    from hypre_tpu_torch.parallel.par_setup import pardell_to_scipy
+
+    n = PAR_SETUP_GRID
+    A = laplacian(n, n, n)
+    Ac = A.tocoo()
+    t0 = time.perf_counter()
+    ij = ParIJMatrix(A.shape[0], PAR_SHARDS)
+    # every entry inserted by the shard after its owner: all off-process
+    owner = Ac.row * PAR_SHARDS // A.shape[0]
+    for s in range(PAR_SHARDS):
+        sel = owner == s
+        ij.add_to_values((s + 1) % PAR_SHARDS, Ac.row[sel], Ac.col[sel],
+                         Ac.data[sel])
+    M = ij.assemble()
+    torch.cuda.synchronize()
+    assemble_s = time.perf_counter() - t0
+    B = pardell_to_scipy(M)
+    exact = B.shape == A.shape and B.nnz == A.nnz and \
+        abs(B - A).max() == 0
+    row_e = {"phase": "distributed", "row": "e", "grid": [n, n, n],
+             "assemble_s": assemble_s, "nnz": B.nnz, "exact": bool(exact)}
+    emit(row_e)
+    hold(not exact, "distributed (e): ParIJ assembly differs from scipy's")
+    del B, Ac
+    cfg = AmgConfig(interp_type=6, relax_type=18)
+    A = A.tocsr()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    pamg = ParBoomerAMG(PAR_SHARDS, cfg).setup_distributed(
+        M, fine_stencil=((n, n, n), LAPLACE_7PT))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_launches = read_counts()
+    del M
+    op = stencil_op((n, n, n), LAPLACE_7PT, dtype=F64)
+    reset_counts()
+    sol = par_solves(pamg, n ** 3, lambda x: stencil_matvec_plain(op, x))
+    launches = read_counts()
+    # the single-device device setup of the same operator, its slots in
+    # the same (ascending column) order: setup_device(stencil=...) puts
+    # them in stencil-arm order, which changes the order of ext+i's sums
+    t0 = time.perf_counter()
+    damg = BoomerAMG(cfg).setup_device(A)
+    torch.cuda.synchronize()
+    dev_setup_s = time.perf_counter() - t0
+    dev_res = pcg(damg.hierarchy.levels[0].A,
+                  torch.ones(n ** 3, dtype=F64, device="cuda"), M=damg,
+                  tol=1e-8, max_iter=100)
+    # the device setup's C/F splits, level by level
+    dev_cf = []
+    for item in dev.iter_device_hierarchy(
+            dev.dell_from_scipy(A, torch.float64, "cuda"), cfg):
+        if isinstance(item, tuple):
+            dev_cf.append(item[3])
+    cf_equal = len(dev_cf) == len(pamg.level_cf) and all(
+        torch.equal(cp, cd) for cp, cd in zip(pamg.level_cf, dev_cf))
+    row_d = {"phase": "distributed", "row": "d", "grid": [n, n, n],
+             "shards": PAR_SHARDS, "levels": pamg.level_sizes,
+             "device_setup_levels": damg.level_sizes,
+             "cf_equal_every_level": bool(cf_equal),
+             "setup_s": setup_s, "device_setup_s": dev_setup_s, **sol,
+             "device_setup_iters": dev_res.iters,
+             "launches_setup": setup_launches, "launches": launches,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(row_d)
+    hold(not cf_equal, "distributed (d): C/F splits differ from the "
+         "single-device device setup's")
+    hold(abs(sol["iters"] - dev_res.iters) > 1,
+         f"distributed (d): {sol['iters']} iterations, device setup "
+         f"{dev_res.iters}")
+    hold(sol["true_relres"] > 1e-8,
+         f"distributed (d): true relres {sol['true_relres']:.3e}")
+    errs = phase_ops_checks(par_ops(pamg), gen, "distributed setup "
+                            f"{n}^3, {PAR_SHARDS} stacked shards")
+    return {"d": row_d, "e": row_e, "errs": errs, "launches": launches}
+
+
+# (f): `python tools/par_reference_counts.py card_struct 128` (the
+# reference's CG + PFMG at 128^3, tol 1e-6; AMG-DD at 64^3 with one FAC
+# cycle: with two it diverges from 24^3 on, in the reference too)
+PAR_STRUCT_GRID = 128
+PAR_SMG_GRID = 64
+PAR_AMGDD_GRID = 64
+REF_PAR_PFMG_CG = (128, 29)
+REF_PAR_AMGDD = (64, 56)
+LAP7Z = [((0, 0, 0), 6.0), ((0, 0, -1), -1.0), ((0, 0, 1), -1.0),
+         ((0, -1, 0), -1.0), ((0, 1, 0), -1.0),
+         ((-1, 0, 0), -1.0), ((1, 0, 0), -1.0)]
+
+
+def par_cycle_comm(par, b) -> dict:
+    """Exchanges and all_gathers (entries each) of one cycle."""
+    comm = par.comm
+    comm.exchanges, comm.all_gathers, comm.gathered = 0, 0, []
+    par.cycle(b)
+    torch.cuda.synchronize()
+    return {"exchanges": comm.exchanges, "all_gathers": comm.all_gathers,
+            "gathered_entries": list(comm.gathered),
+            "sharded_levels": par.n_sharded, "levels": len(par.levels)}
+
+
+def par_struct_rows(gen) -> dict:
+    """(f) the z-slab struct solvers and AMG-DD on 8 stacked shards:
+    CG + ParPFMG at 128^3 (the reference's count), CG + ParSMG at 32^3
+    (OUT3_HELD, the reference's) and 64^3 (the single-device count),
+    ParSysPFMG on the struct phase's 2 x 80^3 system (REF_G["sys"]),
+    AMG-DD at 64^3 (REF_PAR_AMGDD) with one composite gather an outer
+    iteration."""
+    from hypre_tpu_torch.parallel.amgdd import AmgDD
+    from hypre_tpu_torch.struct import SMG
+    from hypre_tpu_torch.struct.par_struct import (
+        ParPFMG, ParSMG, ParSysPFMG, par_struct_pcg,
+    )
+    from hypre_tpu_torch.struct.smg import SmgConfig
+
+    rows = {}
+    n = PAR_STRUCT_GRID
+    A = struct_matrix_from_stencil((n, n, n), LAP7Z)
+    par, setup_s = timed(lambda: ParPFMG(PAR_SHARDS, PfmgConfig()).setup(A))
+    ones = torch.ones((n, n, n), dtype=F64, device="cuda")
+    res, solve_s = timed(lambda: par_struct_pcg(par, ones, tol=1e-6,
+                                                max_iter=100))
+    tr = struct_true_relres(A, ones, res.x)
+    rows["pfmg_cg"] = {"grid": [n, n, n], "setup_s": setup_s,
+                       "solve_s": solve_s, "iters": res.iters,
+                       "relres": res.relres, "true_relres": tr,
+                       "slab_planes": [p.slabs.nzl if p.slabs else None
+                                       for p in par.levels],
+                       "per_cycle": par_cycle_comm(par, par.to_level0(
+                           ones[None]))}
+    hold(res.iters != REF_PAR_PFMG_CG[1] or tr > 1e-6,
+         f"distributed (f) CG+ParPFMG: {res.iters} iterations (reference "
+         f"{REF_PAR_PFMG_CG[1]}), true relres {tr:.3e}")
+    del par, A, ones
+    for m, ref in ((OUT3_HELD[0], OUT3_HELD[1]), (PAR_SMG_GRID, None)):
+        A = struct_matrix_from_stencil((m, m, m), LAP7Z)
+        ones = torch.ones((m, m, m), dtype=F64, device="cuda")
+        ps, setup_s = timed(lambda: ParSMG(PAR_SHARDS, SmgConfig()).setup(A))
+        res, solve_s = timed(lambda: par_struct_pcg(ps, ones, tol=1e-6,
+                                                    max_iter=100))
+        if ref is None:
+            one = SMG(SmgConfig()).setup(A)
+            ref = pcg(lambda v: struct_matvec(A, v), ones,
+                      M=one.precondition, tol=1e-6, max_iter=100).iters
+            del one
+        tr = struct_true_relres(A, ones, res.x)
+        rows[f"smg_cg_{m}"] = {"grid": [m, m, m], "setup_s": setup_s,
+                               "solve_s": solve_s, "iters": res.iters,
+                               "held_to": ref, "true_relres": tr,
+                               "per_cycle": par_cycle_comm(
+                                   ps, ps.to_level0(ones[None]))}
+        hold(res.iters != ref or tr > 1e-6,
+             f"distributed (f) CG+ParSMG at {m}^3: {res.iters} iterations, "
+             f"held to {ref}; true relres {tr:.3e}")
+        del ps, A, ones
+    blocks = sys_coupled_system(SYS_GRID)
+    ps, setup_s = timed(lambda: ParSysPFMG(PAR_SHARDS, PfmgConfig()).setup(
+        blocks, 2, (SYS_GRID,) * 3))
+    b = torch.ones((2,) + (SYS_GRID,) * 3, dtype=F64, device="cuda")
+    (x, it, rel), solve_s = timed(lambda: ps.solve(b, tol=STRUCT_TOL))
+    tr = float(torch.linalg.vector_norm(b - sys_matvec(
+        ps.sys_h.levels[0], x)) / torch.linalg.vector_norm(b))
+    rows["sys_pfmg"] = {"grid": [2] + [SYS_GRID] * 3, "setup_s": setup_s,
+                        "solve_s": solve_s, "iters": it, "relres": rel,
+                        "true_relres": tr, "held_to": REF_G["sys"][0],
+                        "per_cycle": par_cycle_comm(ps, ps.to_level0(b))}
+    hold(it != REF_G["sys"][0] or tr > STRUCT_TOL,
+         f"distributed (f) ParSysPFMG: {it} iterations (reference "
+         f"{REF_G['sys'][0]}), true relres {tr:.3e}")
+    del ps, blocks, b, x
+    n = PAR_AMGDD_GRID
+    A = laplacian(n, n, n)
+    dd, setup_s = timed(lambda: AmgDD(
+        PAR_SHARDS, AmgConfig(interp_type=6, relax_type=18), padding=1,
+        fac_cycles=1).setup(A))
+    dd.composite_gathers = 0
+    (x, it, rel), solve_s = timed(lambda: dd.solve(np.ones(A.shape[0]),
+                                                   tol=1e-8, max_iter=200))
+    tr = float(np.linalg.norm(1.0 - A @ x) / np.sqrt(A.shape[0]))
+    rows["amgdd"] = {"grid": [n, n, n], "setup_s": setup_s,
+                     "solve_s": solve_s, "iters": it, "relres": rel,
+                     "true_relres": tr, "composite_gathers":
+                         dd.composite_gathers,
+                     "composite_sizes": [l.m for l in dd.levels],
+                     "held_to": REF_PAR_AMGDD[1]}
+    hold(it != REF_PAR_AMGDD[1] or dd.composite_gathers != it
+         or tr > 1e-7, f"distributed (f) AMG-DD: {it} iterations (reference "
+         f"{REF_PAR_AMGDD[1]}), {dd.composite_gathers} composite gathers, "
+         f"true relres {tr:.3e}")
+    ops = [(f"amgdd {name}{l}", getattr(lvl, name))
+           for l, lvl in enumerate(dd.levels) for name in ("A", "P", "R")
+           if getattr(lvl, name) is not None]
+    errs = phase_ops_checks(ops, gen, f"AMG-DD {n}^3, {PAR_SHARDS} stacked "
+                            "shards")
+    del dd
+    emit({"phase": "distributed", "row": "f", **rows})
+    return {"rows": rows, "errs": errs}
+
+
+def par_nccl_row() -> dict:
+    """(g) the DistComm executor on a world-size-1 NCCL group: (a)'s
+    V-PCG equal to the stacked run with 1 shard."""
+    import socket
+
+    import torch.distributed as dist
+
+    from hypre_tpu_torch.parallel.comm import DistComm, StackedComm
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        A = laplacian(12, 12, 12)
+        b = np.ones(A.shape[0])
+        xd, itd, reld = ParBoomerAMG(DistComm(), AmgConfig()).setup(
+            A).solve_pcg(b, tol=1e-8)
+        xs, its, rels = ParBoomerAMG(StackedComm(1), AmgConfig()).setup(
+            A).solve_pcg(b, tol=1e-8)
+    finally:
+        dist.destroy_process_group()
+    row = {"phase": "distributed", "row": "g", "backend": "nccl",
+           "world_size": 1, "iters": itd, "relres": reld,
+           "stacked_1_shard_iters": its, "stacked_relres": rels,
+           "x_max_abs_diff": float(np.abs(xd - xs).max())}
+    emit(row)
+    hold(itd != its or not np.array_equal(xd, xs),
+         "distributed (g): NCCL DistComm differs from the stacked run")
+    return row
+
+
+def phase_distributed(gen, main_out: dict) -> dict:
+    """The distributed layer on the card: (a) the dryrun analog, (b)
+    ex_multichip, (c) out.14 on 8 stacked shards, (e)/(d) ParIJ and the
+    distributed setup at 128^3, (f) struct and AMG-DD, (g) NCCL."""
+    from hypre_tpu_torch.examples import ex_multichip
+
+    t0 = time.perf_counter()
+    set_config(Config(real_dtype=F64, device="cuda"))
+    a = par_dryrun_rows()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, it_b, rel_b = ex_multichip.main(24)
+    emit({"phase": "distributed", "row": "b", "case": "ex_multichip 24^3",
+          "stdout": out.getvalue().splitlines()})
+    hold(rel_b > 1e-8, f"distributed (b): relres {rel_b:.3e}")
+    c = par_out14(main_out, gen)
+    torch.cuda.empty_cache()
+    de = par_setup_rows(gen)
+    torch.cuda.empty_cache()
+    f = par_struct_rows(gen)
+    torch.cuda.empty_cache()
+    g = par_nccl_row()
+    errs = {k: max(c["errs"][k], de["errs"][k], f["errs"][k])
+            for k in c["errs"]}
+    emit({"phase": "distributed", "run": "all",
+          "wall_s": time.perf_counter() - t0})
+    return {"a": a, "c": c["row"], "errs": errs,
+            "launches": c["launches"], "g": g, "f": f["rows"]}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2955,6 +3407,7 @@ def main() -> int:
     solvers = phase_ij_solvers(gen, card["peaks"])
     struct = phase_struct(card["peaks"], gen)
     aux = phase_maxwell(gen)
+    dist = phase_distributed(gen, main_path["out"])
     aux_launches = {f"launches_maxwell_{tag}": aux[tag]["launches"]
                     for tag in ("a", "b", "c")}
     aux_per_iter = {f"launches_per_pcg_iter_maxwell_{tag}":
@@ -2976,11 +3429,17 @@ def main() -> int:
             ("csr_spmv", "hypre_tpu_torch/csrc/csr_spmv.cu",
              "hypre_tpu/ops/gstell.py:719",
              max(k2_err, ij_errs["csr_spmv"], breadth["errs"]["csr_spmv"],
-                 struct["errs"]["csr_spmv"]),
+                 struct["errs"]["csr_spmv"], dist["errs"]["csr_spmv"]),
              main_path["launches"]["csr_spmv"],
              {"launches_device_path": device_path["out"]["launches_solves"][
                  "csr_spmv"], "launches_ij_driver_a": ij_a["launches"][
-                 "csr_spmv"]}),
+                 "csr_spmv"],
+              # the distributed phase's (c): out.14 on 8 stacked shards
+              "launches_distributed": dist["launches"]["csr_spmv"],
+              "launches_per_pcg_iter_distributed": dist["c"][
+                  "launches_per_pcg_iter"]["csr_spmv"],
+              "max_abs_err_distributed": dist["errs"]["csr_spmv"],
+              "max_rel_err_distributed": dist["errs"]["csr_spmv rel"]}),
             ("dia_matvec", "hypre_tpu_torch/csrc/dia_matvec.cu",
              "hypre_tpu/ops/dia_pallas.py:105",
              max(timing["dia_matvec"]["max_abs_err"],

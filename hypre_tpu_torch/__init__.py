@@ -28,6 +28,11 @@ solvers  — BoomerAMG; PCG, GMRES, FlexGMRES, LGMRES, COGMRES, BiCGSTAB,
 struct   — structured grids: the struct matrix, PFMG, SMG, SparseMSG,
            SysPFMG, multi-box grids, FAC (setup numpy on the host,
            cycles torch on the device); sstruct — parts, graph, Split
+parallel — the distributed layer: partitions, halo-exchange schedules
+           and their executors (shards stacked in one process, or
+           torch.distributed ranks), ParCSR, the distributed setup, IJ
+           assembly and AMG-DD; solvers.par_amg (ParBoomerAMG) and
+           struct.par_struct (ParPFMG, ParSMG, ParSysPFMG) run over it
 drivers  — hypre's ij and struct drivers; testing — their golden harness
 ij, mmio — IJ assembly and Matrix Market I/O (numpy)
 hypre_compat — the HYPRE_* C-API call surface; core.checkpoint — AMG

@@ -45,6 +45,16 @@ the reference's set-up state: its two sub-hierarchies (each as
 inverse l1 norms.  ``maxwell_from_numpy`` does so for SStructMaxwell:
 each level's operators (convert's dicts), inverse norms and the coarse
 pseudo-inverse.
+
+The distributed layer: ``partition_from_numpy`` (a partition as a dict),
+``comm_pkg_from_numpy`` (a CommPkg's arrays, the same arrays),
+``parcsr_from_numpy`` (a ParCSR's stacked ELL blocks,
+``(n_shards, n_local, K)``, as the port's block-diagonal diag CSR,
+columns ``p n_local_col + col``, and offd CSR, columns ``p (n_ghost + 1)
++ slot``; empty slots, value 0, dropped), ``pardell_from_numpy`` (a
+ParDEll, the same layout) and ``par_hierarchy_from_numpy`` (a
+ParAmgHierarchy: each level's ParCSRs and smoother arrays, the coarse
+LU) build the port's objects on a stacked communicator.
 """
 from __future__ import annotations
 
@@ -339,3 +349,118 @@ def maxwell_from_numpy(levels, c_inv, config=None):
         out.levels.append(d)
     out.c_inv = as_real(np.array(c_inv, dtype=np.float64))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer
+# ---------------------------------------------------------------------------
+
+def partition_from_numpy(d: dict):
+    """{"n_global", "n_shards", "n_local"} -> RowPartition; {"starts",
+    "n_local"} -> GenPartition."""
+    from hypre_tpu_torch.parallel.partition import GenPartition, RowPartition
+
+    if "starts" in d:
+        return GenPartition(starts=tuple(int(x) for x in d["starts"]),
+                            n_local=int(d["n_local"]))
+    return RowPartition(int(d["n_global"]), int(d["n_shards"]),
+                        int(d["n_local"]))
+
+
+def comm_pkg_from_numpy(d: dict):
+    """A reference CommPkg's send_idx, send_mask, recv_idx, offsets and
+    n_ghost as the port's CommPkg."""
+    from hypre_tpu_torch.parallel.comm import CommPkg
+
+    return CommPkg(send_idx=np.asarray(d["send_idx"], np.int32),
+                   send_mask=np.asarray(d["send_mask"], np.float64),
+                   recv_idx=np.asarray(d["recv_idx"], np.int32),
+                   offsets=tuple(int(o) for o in d["offsets"]),
+                   n_ghost=int(d["n_ghost"]))
+
+
+def _block_csr(cols, vals, col_stride: int, n_cols: int, dtype, device):
+    """Stacked ELL (n_shards, n_local, K) -> one CSR with columns
+    p col_stride + col; zero slots dropped."""
+    cols = np.asarray(cols, np.int64)
+    vals = np.asarray(vals, np.float64)
+    ns, nl, K = cols.shape
+    rows = np.broadcast_to((np.arange(ns)[:, None] * nl
+                            + np.arange(nl)[None, :])[:, :, None], cols.shape)
+    c = np.arange(ns)[:, None, None] * col_stride + cols
+    keep = vals != 0
+    M = sp.csr_matrix((vals[keep], (rows[keep], c[keep])),
+                      shape=(ns * nl, n_cols))
+    return csr_from_scipy(M, dtype, device)
+
+
+def parcsr_from_numpy(d: dict, communicator, dtype=None):
+    """A reference ParCSR (diag_cols/diag_vals/offd_cols/offd_vals, its
+    "comm" dict and "row_part"/"col_part" dicts) as the port's ParCSR on
+    a stacked communicator."""
+    from hypre_tpu_torch.parallel.parcsr import ParCSR
+
+    dtype = dtype or get_config().real_dtype
+    dev = communicator.device
+    rp = partition_from_numpy(d["row_part"])
+    cp = partition_from_numpy(d["col_part"])
+    comm = comm_pkg_from_numpy(d["comm"])
+    ns = rp.n_shards
+    return ParCSR(
+        diag=_block_csr(d["diag_cols"], d["diag_vals"], cp.n_local,
+                        ns * cp.n_local, dtype, dev),
+        offd=_block_csr(d["offd_cols"], d["offd_vals"], comm.n_ghost + 1,
+                        ns * (comm.n_ghost + 1), dtype, dev),
+        comm=comm, row_part=rp, col_part=cp, communicator=communicator)
+
+
+def pardell_from_numpy(cols, vals, row_part: dict, col_part: dict,
+                       communicator):
+    """A reference ParDEll ((n_shards, w, n_local) global cols and
+    values) as the port's, f64 on the communicator's device."""
+    from hypre_tpu_torch.parallel.par_setup import ParDEll
+
+    dev = communicator.device
+    return ParDEll(cols=torch.as_tensor(np.array(cols, np.int32),
+                                        device=dev),
+                   vals=torch.as_tensor(np.array(vals, np.float64),
+                                        device=dev),
+                   row_part=partition_from_numpy(row_part),
+                   col_part=partition_from_numpy(col_part),
+                   communicator=communicator)
+
+
+def par_hierarchy_from_numpy(levels, c_lu, c_piv, communicator,
+                             relax_weight: float = 1.0, num_sweeps: int = 1,
+                             relax_type: int = 18, dtype=None):
+    """The port's ParAmgHierarchy from a reference one: levels, one dict
+    each with "A", "P", "R" (parcsr_from_numpy dicts, None where
+    absent), "dinv", "cheby_ds", "gs_lo", "gs_up" (stacked numpy arrays
+    or None) and "cheby_bounds" (the (n_shards, 2) array or None); c_lu
+    and c_piv the replicated coarse LU (0-based pivots)."""
+    from hypre_tpu_torch.solvers.par_amg import ParAmgHierarchy, ParAmgLevel
+
+    dtype = dtype or get_config().real_dtype
+    dev = communicator.device
+
+    def real(a):
+        return None if a is None else torch.as_tensor(
+            np.array(a), dtype=dtype, device=dev)
+
+    out = []
+    for lvl in levels:
+        par = {k: None if lvl.get(k) is None
+               else parcsr_from_numpy(lvl[k], communicator, dtype)
+               for k in ("A", "P", "R")}
+        b = lvl.get("cheby_bounds")
+        out.append(ParAmgLevel(
+            A=par["A"], P=par["P"], R=par["R"], dinv=real(lvl.get("dinv")),
+            cheby_ds=real(lvl.get("cheby_ds")),
+            cheby_bounds=None if b is None else (float(np.asarray(b)[0, 0]),
+                                                 float(np.asarray(b)[0, 1])),
+            gs_lo=real(lvl.get("gs_lo")), gs_up=real(lvl.get("gs_up"))))
+    return ParAmgHierarchy(
+        levels=tuple(out), c_lu=real(c_lu),
+        c_piv=lu_pivots_from_jax(c_piv).to(dev), relax_weight=relax_weight,
+        num_sweeps=num_sweeps, communicator=communicator,
+        relax_type=relax_type)

@@ -8,6 +8,6 @@ the card by default, the CPU after ``set_config(Config(device="cpu"))``.
 ex5 (IJ + AMG-PCG), ex11 (LOBPCG + AMG), ex_struct (CG + PFMG), ex3_pfmg
 (PFMG alone), ex15_ams (AMS-PCG), ex9_systems (systems AMG-GMRES),
 ex_lobpcg (LOBPCG, analytic eigenvalues), ex6_multibox (PFMG on an
-L-shaped box union) and ex_capi (the HYPRE_* call surface).  The
-distributed example (ex_multichip) belongs to the port's distributed
-slice."""
+L-shaped box union), ex_capi (the HYPRE_* call surface) and
+ex_multichip (ParBoomerAMG-PCG over shards, with ``dryrun_multichip``,
+the analog of the repository's ``__graft_entry__.dryrun_multichip``)."""

@@ -134,6 +134,14 @@ class AmgHierarchy:
     add_last_lvl: int = -1
 
 
+def build_host_hierarchy(A: sp.csr_matrix, cfg: AmgConfig):
+    """The host setup as lists (amg.py:149): ([(A_l, P_l, R_l, cf_l)],
+    A_coarsest), scipy matrices."""
+    levels_host = list(iter_host_hierarchy(A, cfg))
+    Al = levels_host.pop()  # the generator's last item is the coarsest A
+    return levels_host, Al
+
+
 def iter_host_hierarchy(A: sp.csr_matrix, cfg: AmgConfig):
     """Generator form of the level loop of hypre_BoomerAMGSetup
     (ref: src/parcsr_ls/par_amg_setup.c:990-3155; amg.py:162-338):

@@ -7,6 +7,13 @@ two-norm form the ij driver selects (HYPRE_PCGSetTwoNorm(pcg, 1), ref:
 src/test/ij.c:5019), ||r_k||_2 / ||b||_2 <= tol with the recursively
 updated residual, plus the atol and NaN/Inf guards.  Reading the
 residual norm each iteration is one device-to-host sync.
+
+Every loop takes an optional reducer, ``dot=`` and ``norm=``: the
+analog of the reference's ``make_reducers(axis_name)`` (krylov.py:
+32-52), the TPU form of hypre's vtable (ref: src/krylov/pcg.h:49-70).
+The default is the flat ``ops/vector.dot`` and ``vector_norm`` of one
+device; the distributed solve (solvers/par_amg.py) passes its
+communicator's, which sum per shard and then over shards.
 """
 from __future__ import annotations
 
@@ -15,7 +22,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from hypre_tpu_torch.ops.vector import dot
+from hypre_tpu_torch.ops.vector import dot as _vdot
 
 
 class KrylovResult(NamedTuple):
@@ -40,8 +47,14 @@ def _preconditioner(M) -> Callable[[torch.Tensor], torch.Tensor]:
     return M
 
 
+def reducers(dot=None, norm=None):
+    """(dot, norm): the given ones, or the single-device defaults."""
+    return dot or _vdot, norm or torch.linalg.vector_norm
+
+
 def pcg(A, b, x0=None, M=None, tol: float = 1e-8,
-        max_iter: int = 1000, atol: float = 0.0) -> KrylovResult:
+        max_iter: int = 1000, atol: float = 0.0, dot=None,
+        norm=None) -> KrylovResult:
     """Preconditioned conjugate gradients (ref: src/krylov/pcg.c:318).
 
     A: a SparseOp (ops/formats.py) or a callable x -> A@x
@@ -57,13 +70,14 @@ def pcg(A, b, x0=None, M=None, tol: float = 1e-8,
     x = torch.zeros_like(b) if x0 is None else as_real(x0, b.dtype)
     Aop = A if callable(A) else (lambda v: matvec(A, v))
     Mop = _preconditioner(M)
+    dot, norm = reducers(dot, norm)
 
-    bnorm = float(torch.linalg.vector_norm(b))
+    bnorm = float(norm(b))
     safe_b = bnorm if bnorm > 0 else 1.0
     r = b - Aop(x)
     p = Mop(r)
     gamma = dot(r, p)
-    rnorm = float(torch.linalg.vector_norm(r))
+    rnorm = float(norm(r))
     it = 0
     # isfinite: the NaN/Inf guard of par_amg_solve.c:208 — stop
     # iterating instead of spinning to max_iter on a blown-up state
@@ -78,6 +92,6 @@ def pcg(A, b, x0=None, M=None, tol: float = 1e-8,
         beta = gamma_new / gamma
         p = z + beta * p
         gamma = gamma_new
-        rnorm = float(torch.linalg.vector_norm(r))
+        rnorm = float(norm(r))
         it += 1
     return KrylovResult(x=x, iters=it, relres=rnorm / safe_b)

@@ -7,7 +7,9 @@ flexgmres.c, lgmres.c, cogmres.c, bicgstab.c, cgnr.c).  As in the
 port's ``pcg``, the loop runs on the host and launches each step's work
 on the device; each step reads one scalar (GMRES: the new Hessenberg
 column, BiCGSTAB and CGNR: the residual norm; COGMRES: its Hessenberg
-matrix once a restart), one device-to-host sync.
+matrix once a restart), one device-to-host sync.  Each takes the
+optional ``dot=``/``norm=`` reducer of krylov.py (the distributed
+solve's sums over shards).
 
 GMRES is right-preconditioned restarted modified-Gram-Schmidt GMRES
 with Givens rotations; the restart dimension k_dim is 5 by default, as
@@ -25,8 +27,7 @@ import math
 import numpy as np
 import torch
 
-from hypre_tpu_torch.ops.vector import dot
-from hypre_tpu_torch.solvers.krylov import KrylovResult
+from hypre_tpu_torch.solvers.krylov import KrylovResult, reducers
 
 
 def _ops(A, M):
@@ -37,17 +38,17 @@ def _ops(A, M):
     return Aop, _preconditioner(M)
 
 
-def _start(b, x0):
+def _start(b, x0, norm):
     from hypre_tpu_torch.core.config import as_real
 
     b = b if isinstance(b, torch.Tensor) else as_real(b)
     x = torch.zeros_like(b) if x0 is None else as_real(x0, b.dtype)
-    bnorm = float(torch.linalg.vector_norm(b))
+    bnorm = float(norm(b))
     return b, x, (bnorm if bnorm > 0 else 1.0)
 
 
 def gmres(A, b, x0=None, M=None, tol: float = 1e-8, max_iter: int = 1000,
-          k_dim: int = 5, _aug=None) -> KrylovResult:
+          k_dim: int = 5, _aug=None, dot=None, norm=None) -> KrylovResult:
     """Right-preconditioned restarted GMRES(k_dim), hypre semantics
     (ref: src/krylov/gmres.c:274).  Because the preconditioned basis Z
     is kept, the same loop is the FGMRES recurrence: M may vary between
@@ -59,12 +60,13 @@ def gmres(A, b, x0=None, M=None, tol: float = 1e-8, max_iter: int = 1000,
     augmentation directions minimized over, one at a time, after each
     Arnoldi cycle (LGMRES)."""
     Aop, Mop = _ops(A, M)
-    b, x, safe_b = _start(b, x0)
+    dot, norm = reducers(dot, norm)
+    b, x, safe_b = _start(b, x0, norm)
     m = k_dim
 
     def arnoldi_cycle(x):
         r = b - Aop(x)
-        beta = float(torch.linalg.vector_norm(r))
+        beta = float(norm(r))
         V = [r / beta if beta > 0 else torch.zeros_like(r)]
         Z = []
         H = np.zeros((m + 1, m))
@@ -81,7 +83,7 @@ def gmres(A, b, x0=None, M=None, tol: float = 1e-8, max_iter: int = 1000,
                 hij = dot(V[i], w)
                 w = w - hij * V[i]
                 hs.append(hij)
-            hs.append(torch.linalg.vector_norm(w))
+            hs.append(norm(w))
             hcol = np.zeros(m + 1)
             hcol[:j + 2] = torch.stack(hs).tolist()
             hj1 = hcol[j + 1]
@@ -114,33 +116,34 @@ def gmres(A, b, x0=None, M=None, tol: float = 1e-8, max_iter: int = 1000,
             for zk in _aug:
                 Az = Aop(zk)
                 den = torch.clamp(dot(Az, Az), min=1e-300)
-                alpha = torch.where(torch.linalg.vector_norm(zk) > 0,
+                alpha = torch.where(norm(zk) > 0,
                                     dot(Az, r) / den, 0.0)
                 x = x + alpha * zk
                 r = r - alpha * Az
         return x, j
 
-    rel = float(torch.linalg.vector_norm(b - Aop(x))) / safe_b
+    rel = float(norm(b - Aop(x))) / safe_b
     it = 0
     while it < max_iter and rel > tol and math.isfinite(rel):
         x, cnt = arnoldi_cycle(x)
-        rel = float(torch.linalg.vector_norm(b - Aop(x))) / safe_b
+        rel = float(norm(b - Aop(x))) / safe_b
         it += cnt
     return KrylovResult(x=x, iters=it, relres=rel)
 
 
 def bicgstab(A, b, x0=None, M=None, tol: float = 1e-8,
-             max_iter: int = 1000) -> KrylovResult:
+             max_iter: int = 1000, dot=None, norm=None) -> KrylovResult:
     """Preconditioned BiCGSTAB (ref: src/krylov/bicgstab.c); A, b and M
     as for gmres."""
     Aop, Mop = _ops(A, M)
-    b, x, safe_b = _start(b, x0)
+    dot, norm = reducers(dot, norm)
+    b, x, safe_b = _start(b, x0, norm)
     r = b - Aop(x)
     rt = r                                  # shadow residual
     p = torch.zeros_like(b)
     v = torch.zeros_like(b)
     rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
-    rel = float(torch.linalg.vector_norm(r)) / safe_b
+    rel = float(norm(r)) / safe_b
     it = 0
     while it < max_iter and rel > tol and math.isfinite(rel):
         rho_new = dot(rt, r)
@@ -156,67 +159,85 @@ def bicgstab(A, b, x0=None, M=None, tol: float = 1e-8,
         x = x + alpha * ph + omega * sh
         r = s - omega * t
         rho = rho_new
-        rel = float(torch.linalg.vector_norm(r)) / safe_b
+        rel = float(norm(r)) / safe_b
         it += 1
     return KrylovResult(x=x, iters=it, relres=rel)
 
 
 def flexgmres(A, b, x0=None, M=None, tol: float = 1e-8,
-              max_iter: int = 1000, k_dim: int = 5) -> KrylovResult:
+              max_iter: int = 1000, k_dim: int = 5, dot=None,
+              norm=None) -> KrylovResult:
     """Flexible GMRES (ref: src/krylov/flexgmres.c): gmres keeps the
     preconditioned basis, which is the FGMRES recurrence, so this is
     the same loop under the reference's solver name."""
-    return gmres(A, b, x0=x0, M=M, tol=tol, max_iter=max_iter, k_dim=k_dim)
+    return gmres(A, b, x0=x0, M=M, tol=tol, max_iter=max_iter, k_dim=k_dim,
+                 dot=dot, norm=norm)
 
 
 def lgmres(A, b, x0=None, M=None, tol: float = 1e-8,
            max_iter: int = 1000, k_dim: int = 10,
-           aug_dim: int = 2) -> KrylovResult:
+           aug_dim: int = 2, dot=None, norm=None) -> KrylovResult:
     """LGMRES (ref: src/krylov/lgmres.c): GMRES(k_dim) augmented with
     the last aug_dim error approximations z = x_r - x_{r-1}, newest
     first, as the reference's rolled (aug_dim, n) buffer holds them."""
     Aop, Mop = _ops(A, M)
-    b, x, safe_b = _start(b, x0)
+    dot, norm = reducers(dot, norm)
+    b, x, safe_b = _start(b, x0, norm)
     aug = [torch.zeros_like(b) for _ in range(max(int(aug_dim), 1))]
-    rel = float(torch.linalg.vector_norm(b - Aop(x))) / safe_b
+    rel = float(norm(b - Aop(x))) / safe_b
     it = 0
     while it < max_iter and rel > tol and math.isfinite(rel):
         res = gmres(Aop, b, x0=x, M=Mop, tol=tol, max_iter=k_dim,
-                    k_dim=k_dim, _aug=aug)
+                    k_dim=k_dim, _aug=aug, dot=dot, norm=norm)
         aug = [res.x - x] + aug[:-1]
         x = res.x
-        rel = float(torch.linalg.vector_norm(b - Aop(x))) / safe_b
+        rel = float(norm(b - Aop(x))) / safe_b
         it += res.iters
     return KrylovResult(x=x, iters=it, relres=rel)
 
 
 def cogmres(A, b, x0=None, M=None, tol: float = 1e-8,
-            max_iter: int = 1000, k_dim: int = 5) -> KrylovResult:
+            max_iter: int = 1000, k_dim: int = 5, dot=None,
+            norm=None) -> KrylovResult:
     """COGMRES (ref: src/krylov/cogmres.c): GMRES with classical
     Gram-Schmidt and one reorthogonalization (CGS2), so each Arnoldi
     step is two block products with the basis.  Every cycle runs all
     k_dim steps and counts them, as the reference's does; y solves the
-    (k_dim + 1, k_dim) least-squares problem on the host in f64."""
+    (k_dim + 1, k_dim) least-squares problem on the host in f64.  With a
+    reducer, each block product is one reduced dot a basis vector (the
+    reference's psum of the block, cogmres :247-251)."""
     Aop, Mop = _ops(A, M)
-    b, x, safe_b = _start(b, x0)
+    reduced = dot is not None
+    dot, norm = reducers(dot, norm)
+    b, x, safe_b = _start(b, x0, norm)
     m = k_dim
+
+    def bdot(Vj, w):
+        if not reduced:
+            return Vj.reshape(Vj.shape[0], -1) @ w.reshape(-1)
+        return torch.stack([dot(v, w) for v in Vj])
+
+    def bcomb(Vj, h):
+        return (Vj.reshape(Vj.shape[0], -1).T @ h).reshape(Vj.shape[1:])
 
     def cycle(x):
         r = b - Aop(x)
-        beta = torch.linalg.vector_norm(r)
-        V = torch.zeros((m + 1, b.shape[0]), dtype=b.dtype, device=b.device)
+        beta = norm(r)
+        V = torch.zeros((m + 1,) + tuple(b.shape), dtype=b.dtype,
+                        device=b.device)
         V[0] = torch.where(beta > 0, r / torch.clamp(beta, min=1e-300), 0.0)
-        Z = torch.zeros((m, b.shape[0]), dtype=b.dtype, device=b.device)
+        Z = torch.zeros((m,) + tuple(b.shape), dtype=b.dtype,
+                        device=b.device)
         H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
         for j in range(m):
             z = Mop(V[j])
             w = Aop(z)
             Vj = V[:j + 1]
-            h = Vj @ w
-            w = w - Vj.T @ h
-            h2 = Vj @ w
-            w = w - Vj.T @ h2
-            hj1 = torch.linalg.vector_norm(w)
+            h = bdot(Vj, w)
+            w = w - bcomb(Vj, h)
+            h2 = bdot(Vj, w)
+            w = w - bcomb(Vj, h2)
+            hj1 = norm(w)
             V[j + 1] = torch.where(hj1 > 0, w / torch.clamp(hj1, min=1e-300),
                                    0.0)
             H[:j + 1, j] = h + h2
@@ -225,19 +246,20 @@ def cogmres(A, b, x0=None, M=None, tol: float = 1e-8,
         e1 = np.zeros(m + 1)
         e1[0] = float(beta)
         y = np.linalg.lstsq(H.cpu().double().numpy(), e1, rcond=None)[0]
-        return x + Z.T @ torch.as_tensor(y, dtype=b.dtype, device=b.device)
+        return x + bcomb(Z, torch.as_tensor(y, dtype=b.dtype,
+                                            device=b.device))
 
-    rel = float(torch.linalg.vector_norm(b - Aop(x))) / safe_b
+    rel = float(norm(b - Aop(x))) / safe_b
     it = 0
     while it < max_iter and rel > tol and math.isfinite(rel):
         x = cycle(x)
-        rel = float(torch.linalg.vector_norm(b - Aop(x))) / safe_b
+        rel = float(norm(b - Aop(x))) / safe_b
         it += m
     return KrylovResult(x=x, iters=it, relres=rel)
 
 
 def cgnr(A, b, x0=None, M=None, tol: float = 1e-8, max_iter: int = 1000,
-         At=None, Mt=None) -> KrylovResult:
+         At=None, Mt=None, dot=None, norm=None) -> KrylovResult:
     """CGNR, hypre semantics (ref: src/krylov/cgnr.c:206-434): CG on the
     preconditioned normal equations (AC)^T (AC) y = (AC)^T b with
     x = C y (cgnr.c:361 "q = A*C*p", the transpose at cgnr.c:380).
@@ -247,11 +269,12 @@ def cgnr(A, b, x0=None, M=None, tol: float = 1e-8, max_iter: int = 1000,
     Aop, Mop = _ops(A, M)
     Atop = Aop if At is None else _ops(At, None)[0]
     Mtop = Mop if Mt is None else _ops(A, Mt)[1]
-    b, x, safe_b = _start(b, x0)
+    dot, norm = reducers(dot, norm)
+    b, x, safe_b = _start(b, x0, norm)
     r = b - Aop(x)
     p = Mtop(Atop(r))                      # s = C^T A^T r
     gamma = dot(p, p)
-    rel = float(torch.linalg.vector_norm(r)) / safe_b
+    rel = float(norm(r)) / safe_b
     it = 0
     while it < max_iter and rel > tol and math.isfinite(rel):
         t = Mop(p)                         # t = C p
@@ -263,6 +286,6 @@ def cgnr(A, b, x0=None, M=None, tol: float = 1e-8, max_iter: int = 1000,
         gamma_new = dot(s, s)
         p = s + gamma_new / torch.clamp(gamma, min=1e-300) * p
         gamma = gamma_new
-        rel = float(torch.linalg.vector_norm(r)) / safe_b
+        rel = float(norm(r)) / safe_b
         it += 1
     return KrylovResult(x=x, iters=it, relres=rel)

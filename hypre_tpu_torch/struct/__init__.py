@@ -1,7 +1,7 @@
 """Structured-grid solvers of the port: the struct matrix and its
 matvec, PFMG, SMG (cyclic reduction line solves), SparseMSG, SysPFMG,
 FAC and multi-box grids.  The distributed struct solvers (ParPFMG,
-ParSMG, ParSysPFMG) belong to the port's distributed slice."""
+ParSMG, ParSysPFMG on z-slabs) are in ``struct.par_struct``."""
 from hypre_tpu_torch.struct.grid import (  # noqa: F401
     StructMatrix, struct_laplacian, struct_matrix_from_stencil,
     struct_matvec,

@@ -47,7 +47,11 @@ def test_import_leaves_out_jax_and_reference():
         "hypre_tpu_torch.examples.ex9_systems, "
         "hypre_tpu_torch.examples.ex_lobpcg, "
         "hypre_tpu_torch.examples.ex6_multibox, "
-        "hypre_tpu_torch.examples.ex_capi\n"
+        "hypre_tpu_torch.examples.ex_capi, hypre_tpu_torch.parallel, "
+        "hypre_tpu_torch.parallel.par_setup, "
+        "hypre_tpu_torch.parallel.ij_par, hypre_tpu_torch.parallel.amgdd, "
+        "hypre_tpu_torch.solvers.par_amg, hypre_tpu_torch.struct.par_struct, "
+        "hypre_tpu_torch.examples.ex_multichip\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'hypre_tpu' or m.startswith('hypre_tpu.')]\n"
         "assert not bad, bad\n"
@@ -66,7 +70,8 @@ def test_sources_never_name_jax_or_reference_modules():
 
 
 @pytest.mark.parametrize("call", ["setup", "pcg", "operator", "pfmg", "smg",
-                                  "struct_driver", "ams", "maxwell", "capi"])
+                                  "struct_driver", "ams", "maxwell", "capi",
+                                  "par_amg"])
 def test_default_device_without_card_raises(call):
     """The default device is cuda; with no card, entry points raise
     instead of running on the CPU."""
@@ -97,7 +102,10 @@ def test_default_device_without_card_raises(call):
         "         'ams': lambda: AMS().setup(Ae, G, Pi),\n"
         "         'maxwell': lambda: SStructMaxwell().setup(Ae, G),\n"
         "         'capi': lambda: H.HYPRE_BoomerAMGSetup(\n"
-        "             H.HYPRE_BoomerAMGCreate(), A)}\n"
+        "             H.HYPRE_BoomerAMGCreate(), A),\n"
+        "         'par_amg': lambda: __import__(\n"
+        "             'hypre_tpu_torch.solvers.par_amg', fromlist=['x'])\n"
+        "             .ParBoomerAMG(8, AmgConfig()).setup(A)}\n"
         "try:\n"
         f"    calls[{call!r}]()\n"
         "except HypreTpuError as e:\n"

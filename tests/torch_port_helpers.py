@@ -17,7 +17,13 @@ packages' BoomerAMG on one Laplacian.  For the struct tests,
 ``struct_to_port`` carries a reference StructMatrix across,
 ``assert_struct_level_equal`` holds a struct level bit for bit and
 ``assert_rel_close`` bounds the largest difference by the reference's
-largest entry.  Reference modules are imported
+largest entry.  For the distributed layer, ``mesh8`` is the reference's
+8-device CPU mesh, ``part_dict``/``comm_dict``/``parcsr_dict`` carry a
+reference partition, CommPkg and ParCSR across, ``par_golden`` reads
+tests/golden/par_reference.npz, ``ref_shard_matvec`` runs the
+reference's par_matvec or par_stencil_matvec in its shard_map, and
+``gloo_worker`` is one rank of the torch.distributed (gloo) test.
+Reference modules are imported
 inside the functions: this module is imported by every port test.
 """
 from __future__ import annotations
@@ -421,3 +427,135 @@ def assert_rel_close(ref, port, tol: float) -> None:
     assert ref.shape == port.shape
     err = np.abs(port - ref).max() / max(np.abs(ref).max(), 1e-300)
     assert err <= tol, err
+
+
+# ---------------------------------------------------------------------------
+# the distributed layer
+# ---------------------------------------------------------------------------
+
+PAR_GOLDEN = "par_reference.npz"
+
+
+def mesh8():
+    """The reference's 1-D mesh of the 8 virtual CPU devices."""
+    import jax
+    from jax.sharding import Mesh
+
+    return Mesh(np.array(jax.devices()[:8]), ("p",))
+
+
+def part_dict(part) -> dict:
+    if hasattr(part, "starts"):
+        return {"starts": list(part.starts), "n_local": part.n_local}
+    return {"n_global": part.n_global, "n_shards": part.n_shards,
+            "n_local": part.n_local}
+
+
+def comm_dict(cp) -> dict:
+    return {"send_idx": np.asarray(cp.send_idx),
+            "send_mask": np.asarray(cp.send_mask),
+            "recv_idx": np.asarray(cp.recv_idx), "offsets": cp.offsets,
+            "n_ghost": cp.n_ghost}
+
+
+def parcsr_dict(M) -> dict | None:
+    if M is None:
+        return None
+    return {"diag_cols": np.asarray(M.diag_cols),
+            "diag_vals": np.asarray(M.diag_vals),
+            "offd_cols": np.asarray(M.offd_cols),
+            "offd_vals": np.asarray(M.offd_vals), "comm": comm_dict(M.comm),
+            "row_part": part_dict(M.row_part),
+            "col_part": part_dict(M.col_part)}
+
+
+def par_golden() -> dict:
+    """The reference's stored distributed outputs
+    (tools/par_reference_counts.py fixtures)."""
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "golden" / PAR_GOLDEN
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def golden_csr(g: dict, key: str) -> sp.csr_matrix:
+    return sp.csr_matrix((g[f"{key}/data"], g[f"{key}/indices"],
+                          g[f"{key}/indptr"]), shape=tuple(g[f"{key}/shape"]))
+
+
+def ref_shard_matvec(fn, op, x_sh):
+    """y = fn(op, x) in the reference's shard_map over mesh8 (op's
+    array leaves sharded on their leading axis); x_sh (8, n_local)."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    mesh = mesh8()
+    specs = jax.tree.map(lambda l: P("p", *([None] * (np.ndim(l) - 1))), op)
+    f = jax.jit(jax.shard_map(
+        lambda A, v: fn(A, v[0])[None, :], mesh=mesh,
+        in_specs=(specs, P("p", None)), out_specs=P("p", None),
+        check_vma=False))
+    return np.asarray(f(op, jax.device_put(x_sh, NamedSharding(
+        mesh, P("p", None)))))
+
+
+def gloo_worker(rank: int, world: int, init_file: str, out: str) -> None:
+    """One rank of the gloo test: ParBoomerAMG on a DistComm at 12^3,
+    every level's A, P, R applied to a seeded vector and a PCG solve;
+    rank 0 writes the gathered results to `out` (npz)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    from hypre_tpu_torch import Config, set_config
+
+    set_config(Config(device="cpu"))
+    from hypre_tpu_torch.gen import laplacian
+    from hypre_tpu_torch.parallel.comm import DistComm
+    from hypre_tpu_torch.parallel.parcsr import par_matvec, to_device_shards
+    from hypre_tpu_torch.solvers.amg import AmgConfig
+    from hypre_tpu_torch.solvers.par_amg import ParBoomerAMG
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        comm = DistComm()
+        res = gloo_products(ParBoomerAMG(comm, AmgConfig()), laplacian,
+                            par_matvec, to_device_shards)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        np.savez(out, **res)
+
+
+def gloo_products(pamg, laplacian, par_matvec, to_device_shards) -> dict:
+    """What the gloo test compares: each level's A, P, R times a seeded
+    vector (gathered), a reverse exchange, the PCG's iterations and x."""
+    import torch
+
+    A = laplacian(12, 12, 12)
+    pamg.setup(A)
+    comm = pamg.comm
+    res = {}
+    for l, lvl in enumerate(pamg.hierarchy.levels):
+        for name in ("A", "P", "R"):
+            M = getattr(lvl, name)
+            if M is None:
+                continue
+            x = np.random.RandomState(10 * l + len(name)).randn(
+                M.col_part.n_global)
+            y = par_matvec(M, to_device_shards(x, M.col_part, comm,
+                                               torch.float64))
+            res[f"{name}{l}"] = comm.gather_host(y)
+    # the reverse exchange (summing duplicates) on level 1's A
+    M = pamg.hierarchy.levels[1].A
+    g = np.random.RandomState(7).randn(comm.n_shards, M.comm.n_ghost)
+    s0 = comm.shards.start
+    back = comm.exchange_rev(torch.as_tensor(g[s0:s0 + comm.n_held]),
+                             M.comm, M.col_part.n_local)
+    res["exchange_rev"] = comm.gather_host(back)
+    x, it, rel = pamg.solve_pcg(np.ones(A.shape[0]), tol=1e-8)
+    res["x"], res["iters"], res["relres"] = x, np.asarray(it), \
+        np.asarray(rel)
+    return res
