@@ -14,7 +14,7 @@ the CPU with ``set_config(Config(device="cpu"))``.
 
 Subpackages
 -----------
-core     — config (dtype, device), timing, error state
+core     — config (dtype, device), trace (spans), error state
 gen      — problem generators (Laplacians)
 setup    — host AMG setup: strength, PMIS/HMIS, direct and ext+i
            interpolation, l1 norms; device_amg: the same on the card

@@ -62,6 +62,7 @@ import time
 import numpy as np
 import torch
 
+from hypre_tpu_torch.core import trace
 from hypre_tpu_torch.core.config import synchronize
 from hypre_tpu_torch.ops.btake import btake, btake_rows
 from hypre_tpu_torch.setup.xla_order import SUM_WINDOW, cumsum0, sum0, sum01
@@ -915,8 +916,14 @@ def device_l1_norms(A: DEll, option: int = 1) -> torch.Tensor:
 # level loop (iter_host_hierarchy twin, fully on the card)
 # ---------------------------------------------------------------------------
 
+def stage_mark() -> tuple:
+    """A setup stage boundary: the host clock (ns) and, while the tracer
+    is on, K4's launch count (0 while it is off)."""
+    return time.perf_counter_ns(), btake_rows.launches if trace.on else 0
+
+
 def iter_device_hierarchy(A: DEll, cfg, stats: list | None = None,
-                          trace=None):
+                          note=None):
     """Device-resident AMG setup level loop (ref: src/parcsr_ls/
     par_amg_setup.c:29; device_amg.py:932-990).  Yields
     (A_l, P_l, R_l = P_l^T, cf_l) per level, then the coarsest A.  No
@@ -926,7 +933,10 @@ def iter_device_hierarchy(A: DEll, cfg, stats: list | None = None,
 
     stats, if given, receives one dict per level with the wall seconds
     of each stage (the card is synchronised at each stage's end) and
-    the widths.  trace(msg), if given, is called after each stage."""
+    the widths; while the tracer is on, the same clock readings are the
+    spans setup.strength, setup.pmis, setup.interp and setup.rap
+    (``level``, PMIS's ``rounds``, K4's launches as ``btake``).
+    note(msg), if given, is called after each stage."""
     dev = A.device
     Al = A
     for level in range(cfg.max_levels - 1):
@@ -934,17 +944,22 @@ def iter_device_hierarchy(A: DEll, cfg, stats: list | None = None,
         if n <= cfg.max_coarse_size:
             break
         st = {"level": level, "n": n, "w": Al.width}
-        t0 = time.perf_counter()
+        t0, k0 = stage_mark()
         strong = device_strength(Al, cfg.strong_threshold, cfg.max_row_sum)
         synchronize(dev)
-        t1 = time.perf_counter()
+        t1, k1 = stage_mark()
         cf = device_pmis(Al, strong, seed=cfg.seed, stats=st)
         n_coarse = int((cf == C_PT).sum())
-        t2 = time.perf_counter()
-        st.update(strength_s=t1 - t0, pmis_s=t2 - t1, n_coarse=n_coarse)
-        if trace:
-            trace(f"level {level} strength + PMIS ({st['pmis_rounds']} "
-                  f"rounds): n={n} -> {n_coarse}")
+        t2, k2 = stage_mark()
+        st.update(strength_s=(t1 - t0) / 1e9, pmis_s=(t2 - t1) / 1e9,
+                  n_coarse=n_coarse)
+        if trace.on:
+            trace.add("setup.strength", t0, t1, level=level, btake=k1 - k0)
+            trace.add("setup.pmis", t1, t2, level=level,
+                      rounds=st["pmis_rounds"], btake=k2 - k1)
+        if note:
+            note(f"level {level} strength + PMIS ({st['pmis_rounds']} "
+                 f"rounds): n={n} -> {n_coarse}")
         if n_coarse == 0 or n_coarse == n:
             if stats is not None:
                 stats.append(st)
@@ -959,16 +974,21 @@ def iter_device_hierarchy(A: DEll, cfg, stats: list | None = None,
                 trunc_factor=cfg.trunc_factor, max_elmts=cfg.p_max_elmts)
         del strong
         synchronize(dev)
-        t3 = time.perf_counter()
+        t3, k3 = stage_mark()
         Ac, PT = device_rap(Al, P, stats=st)
         synchronize(dev)
-        t4 = time.perf_counter()
-        st.update(interp_s=t3 - t2, rap_s=t4 - t3, w_p=P.width)
+        t4, k4 = stage_mark()
+        st.update(interp_s=(t3 - t2) / 1e9, rap_s=(t4 - t3) / 1e9,
+                  w_p=P.width)
         if stats is not None:
             stats.append(st)
-        if trace:
-            trace(f"level {level} interp {t3 - t2:.3f}s, RAP {t4 - t3:.3f}s "
-                  f"(w_P={P.width}, w_AP={st['w_ap']}, w_Ac={st['w_ac']})")
+        if trace.on:
+            trace.add("setup.interp", t2, t3, level=level, btake=k3 - k2)
+            trace.add("setup.rap", t3, t4, level=level, btake=k4 - k3)
+        if note:
+            note(f"level {level} interp {st['interp_s']:.3f}s, RAP "
+                 f"{st['rap_s']:.3f}s (w_P={P.width}, w_AP={st['w_ap']}, "
+                 f"w_Ac={st['w_ac']})")
         yield (Al, P, PT, cf)
         # the reference rounds each coarse A's width up to a bucket; the
         # order of its sums over a row depends on that width

@@ -20,6 +20,11 @@ solve of ops/trisolve.py above ``exact_gs_max`` rows), topologically
 ordered GS (10), Chebyshev (16) and Cimmino Kaczmarz (30); V, W and F
 cycles, the additive, mult-additive and simple cycles; a dense LU on
 the coarsest level.
+
+While the tracer (core/trace.py) is on, ``setup_device`` records
+``amg.setup_device`` and its stage spans (``setup.*``), and each cycle
+``amg.cycle`` (with its device time) and, in the multiplicative cycles,
+one ``amg.level`` span per level and direction (``level``, ``phase``).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from hypre_tpu_torch.core import trace
 from hypre_tpu_torch.core.config import (
     as_real, get_config, get_device, synchronize,
 )
@@ -592,7 +598,9 @@ class BoomerAMG:
 
         After it, ``setup_stats`` holds one dict per level: the wall
         seconds of strength, PMIS (and its rounds), interpolation, RAP
-        and packing, with the widths."""
+        and packing, with the widths.  While the tracer is on, the same
+        clock readings are the ``setup.*`` spans, and the coarsest
+        level's dense LU is ``setup.coarse_lu``."""
         from hypre_tpu_torch.setup import device_amg as dev
 
         cfg = self.config
@@ -602,9 +610,10 @@ class BoomerAMG:
                 " use setup()")
         device = get_device()
         dtype = get_config().real_dtype
+        whole = trace.begin("amg.setup_device") if trace.on else None
         t0 = time.perf_counter()
 
-        def trace(msg):
+        def note(msg):
             if cfg.print_level >= 1:
                 print(f"  [amg setup_device +{time.perf_counter() - t0:7.3f}s]"
                       f" {msg}", file=sys.stderr, flush=True)
@@ -614,7 +623,7 @@ class BoomerAMG:
             shape, entries = stencil
             A = dev.dell_stencil(shape, entries, torch.float64, device)
             fine_op = stencil_op(shape, entries, dtype=dtype)
-            trace("fine operator generated on the device")
+            note("fine operator generated on the device")
         elif not isinstance(A, dev.DEll):
             A = dev.dell_from_scipy(A, torch.float64, device)
         else:
@@ -627,11 +636,11 @@ class BoomerAMG:
         self.setup_stats = []
         Al = None
         for item in dev.iter_device_hierarchy(A, cfg, self.setup_stats,
-                                              trace):
+                                              note):
             if not isinstance(item, tuple):
                 Al = item
                 break
-            t1 = time.perf_counter()
+            t1, k1 = dev.stage_mark()
             Ah = item[0]
             self.level_sizes.append(Ah.n_rows)
             self.level_nnz.append(int(Ah.mask.sum()))
@@ -639,12 +648,17 @@ class BoomerAMG:
             levels.append(self._build_dev_level_dell(*item, a_op=a_op,
                                                      dtype=dtype))
             synchronize(device)
-            self.setup_stats[len(levels) - 1]["pack_s"] = \
-                time.perf_counter() - t1
-            trace(f"level {len(levels) - 1} packed (n={Ah.n_rows}, "
-                  f"nnz={self.level_nnz[-1]}, "
-                  f"fmt={type(levels[-1].A).__name__})")
+            t2, k2 = dev.stage_mark()
+            self.setup_stats[len(levels) - 1]["pack_s"] = (t2 - t1) / 1e9
+            if trace.on:
+                trace.add("setup.pack", t1, t2, level=len(levels) - 1,
+                          btake=k2 - k1)
+            note(f"level {len(levels) - 1} packed (n={Ah.n_rows}, "
+                 f"nnz={self.level_nnz[-1]}, "
+                 f"fmt={type(levels[-1].A).__name__})")
         # coarsest level: dense LU on the device
+        lu = trace.begin("setup.coarse_lu", level=len(levels)) \
+            if trace.on else None
         self.level_sizes.append(Al.n_rows)
         self.level_nnz.append(int(Al.mask.sum()))
         dense = dense_from_dell(Al, dtype)
@@ -652,11 +666,15 @@ class BoomerAMG:
                                add_dinv=self._additive_dinv_dell(Al, dtype)))
         c_lu, c_piv = torch.linalg.lu_factor(dense.vals)
         synchronize(device)
-        trace(f"coarsest dense LU (n={Al.n_rows})")
+        if lu is not None:
+            trace.end(lu)
+        note(f"coarsest dense LU (n={Al.n_rows})")
 
         self.hierarchy = self._hierarchy(levels, c_lu, c_piv)
         self.grid_complexity = sum(self.level_sizes) / self.level_sizes[0]
         self.operator_complexity = sum(self.level_nnz) / self.level_nnz[0]
+        if whole is not None:
+            trace.end(whole)
         return self
 
     def _build_dev_level_dell(self, Al, P, PT, cf, a_op=None, *,
@@ -857,9 +875,14 @@ def amg_cycle(h: AmgHierarchy, f: torch.Tensor) -> torch.Tensor:
     """One multigrid cycle with zero initial guess (ref: par_cycle.c:23,
     194-226): V by default, W (mu=2) and F recursively, or the additive
     family when ``additive`` or ``simple`` is set."""
+    tok = trace.begin("amg.cycle", device=f) if trace.on else None
     if h.additive >= 0 or h.simple >= 0:
-        return _additive_cycle(h, f)
-    return _cycle_at(h, 0, f, h.cycle_type)
+        u = _additive_cycle(h, f)
+    else:
+        u = _cycle_at(h, 0, f, h.cycle_type)
+    if tok is not None:
+        trace.end(tok)
+    return u
 
 
 def _smooth(h: AmgHierarchy, lvl: AmgLevel, f, u, up: bool):
@@ -915,11 +938,20 @@ def _cycle_at(h: AmgHierarchy, l: int, f: torch.Tensor,
     levels = h.levels
     nl = len(levels)
     if l == nl - 1:
-        return coarse_solve(h, f)
+        tok = trace.begin("amg.level", level=l, phase="coarse") \
+            if trace.on else None
+        u = coarse_solve(h, f)
+        if tok is not None:
+            trace.end(tok)
+        return u
+    tok = trace.begin("amg.level", level=l, phase="down") \
+        if trace.on else None
     lvl = levels[l]
     u = _smooth(h, lvl, f, None, up=False)
     r = f - matvec(lvl.A, u)
     fc = matvec(lvl.R, r)
+    if tok is not None:
+        trace.end(tok)
     if ctype in ("W", "F") and l < nl - 2:
         # W: two coarse cycles of the same kind; F: an F then a V
         uc = _cycle_at(h, l + 1, fc, ctype)
@@ -927,5 +959,10 @@ def _cycle_at(h: AmgHierarchy, l: int, f: torch.Tensor,
         uc = uc + _cycle_at(h, l + 1, rc, "W" if ctype == "W" else "V")
     else:
         uc = _cycle_at(h, l + 1, fc, "W" if ctype == "W" else "V")
+    tok = trace.begin("amg.level", level=l, phase="up") \
+        if trace.on else None
     u = u + matvec(lvl.P, uc)
-    return _smooth(h, lvl, f, u, up=True)
+    u = _smooth(h, lvl, f, u, up=True)
+    if tok is not None:
+        trace.end(tok)
+    return u

@@ -14,6 +14,10 @@ analog of the reference's ``make_reducers(axis_name)`` (krylov.py:
 The default is the flat ``ops/vector.dot`` and ``vector_norm`` of one
 device; the distributed solve (solvers/par_amg.py) passes its
 communicator's, which sum per shard and then over shards.
+
+While the tracer (core/trace.py) is on, pcg records the spans
+``pcg.solve`` (``iters``), ``pcg.iter`` (the K1 and K2 launches of the
+iteration) and ``pcg.sync`` (the host waiting on a norm).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from hypre_tpu_torch.core import trace
 from hypre_tpu_torch.ops.vector import dot as _vdot
 
 
@@ -66,23 +71,25 @@ def pcg(A, b, x0=None, M=None, tol: float = 1e-8,
     from hypre_tpu_torch.core.config import as_real
     from hypre_tpu_torch.ops.formats import matvec
 
+    solve = trace.begin("pcg.solve") if trace.on else None
     b = b if isinstance(b, torch.Tensor) else as_real(b)
     x = torch.zeros_like(b) if x0 is None else as_real(x0, b.dtype)
     Aop = A if callable(A) else (lambda v: matvec(A, v))
     Mop = _preconditioner(M)
     dot, norm = reducers(dot, norm)
 
-    bnorm = float(norm(b))
+    bnorm = _traced_read(norm(b)) if trace.on else float(norm(b))
     safe_b = bnorm if bnorm > 0 else 1.0
     r = b - Aop(x)
     p = Mop(r)
     gamma = dot(r, p)
-    rnorm = float(norm(r))
+    rnorm = _traced_read(norm(r)) if trace.on else float(norm(r))
     it = 0
     # isfinite: the NaN/Inf guard of par_amg_solve.c:208 — stop
     # iterating instead of spinning to max_iter on a blown-up state
     while (it < max_iter and rnorm / safe_b > tol and rnorm > atol
            and math.isfinite(rnorm)):
+        mark = _iter_begin() if trace.on else None
         s = Aop(p)
         alpha = gamma / dot(p, s)
         x = x + alpha * p
@@ -92,6 +99,36 @@ def pcg(A, b, x0=None, M=None, tol: float = 1e-8,
         beta = gamma_new / gamma
         p = z + beta * p
         gamma = gamma_new
-        rnorm = float(norm(r))
+        rnorm = _traced_read(norm(r)) if trace.on else float(norm(r))
         it += 1
+        if mark is not None:
+            _iter_end(mark)
+    if solve is not None:
+        trace.end(solve, iters=it)
     return KrylovResult(x=x, iters=it, relres=rnorm / safe_b)
+
+
+def _traced_read(v: torch.Tensor) -> float:
+    """float(v) inside a ``pcg.sync`` span: the host waits for the card."""
+    tok = trace.begin("pcg.sync")
+    out = float(v)
+    trace.end(tok)
+    return out
+
+
+def _launches() -> tuple:
+    from hypre_tpu_torch.ops.spmv import csr_spmv
+    from hypre_tpu_torch.ops.stencil import stencil_matvec
+
+    return stencil_matvec.launches, csr_spmv.launches
+
+
+def _iter_begin():
+    return trace.begin("pcg.iter"), _launches()
+
+
+def _iter_end(mark) -> None:
+    """Close a ``pcg.iter`` span with the K1 and K2 launches it made."""
+    tok, (k1, k2) = mark
+    n1, n2 = _launches()
+    trace.end(tok, stencil_matvec=n1 - k1, csr_spmv=n2 - k2)

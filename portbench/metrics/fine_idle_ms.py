@@ -1,0 +1,8 @@
+"""Idle device time (ms) per PCG iteration of the span take whose ending
+launch lies in an ``amg.level`` span of level 0: the fine smoother,
+residual and transfers (spans.py)."""
+from portbench import spans
+
+
+def read(ctx):
+    return spans.idle_ms(ctx, "fine")
