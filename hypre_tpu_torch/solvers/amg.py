@@ -21,10 +21,20 @@ ordered GS (10), Chebyshev (16) and Cimmino Kaczmarz (30); V, W and F
 cycles, the additive, mult-additive and simple cycles; a dense LU on
 the coarsest level.
 
+On the card, a V-cycle of a multiplicative hierarchy of three or more
+levels whose smoother makes no host sync (``GRAPH_RELAX``) runs its
+levels >= 1 as one CUDA graph: captured at the hierarchy's first such
+cycle, replayed at every later one (``CoarseGraph``).  The graph
+replays the very kernels the eager cycle launches, so the numbers are
+the eager cycle's bit for bit; every other cycle, and every cycle on
+the CPU, runs eagerly.  ``amg_cycle.captures``, ``.replays`` and
+``.eager`` count them.
+
 While the tracer (core/trace.py) is on, ``setup_device`` records
 ``amg.setup_device`` and its stage spans (``setup.*``), and each cycle
 ``amg.cycle`` (with its device time) and, in the multiplicative cycles,
-one ``amg.level`` span per level and direction (``level``, ``phase``).
+one ``amg.level`` span per level and direction (``level``, ``phase``);
+a graph's replay is one span, ``level`` 1, ``phase`` "graph".
 """
 from __future__ import annotations
 
@@ -42,11 +52,13 @@ from hypre_tpu_torch.core import trace
 from hypre_tpu_torch.core.config import (
     as_real, get_config, get_device, synchronize,
 )
+from hypre_tpu_torch.ops.dia import dia_matvec
 from hypre_tpu_torch.ops.formats import (
     SparseOp, dense_from_dell, matvec, sparse_op_from_dell,
     sparse_op_from_scipy,
 )
-from hypre_tpu_torch.ops.stencil import stencil_op
+from hypre_tpu_torch.ops.spmv import csr_spmv
+from hypre_tpu_torch.ops.stencil import stencil_matvec, stencil_op
 from hypre_tpu_torch.ops.trisolve import WavefrontTriSolve, build_trisolve
 from hypre_tpu_torch.setup.coarsen import C_PT, hmis, pmis
 from hypre_tpu_torch.setup.interp import direct_interp
@@ -101,6 +113,12 @@ class AmgConfig:
 
 EXACT_GS_RELAX = (3, 4, 6, 8, 13, 14)
 DEVICE_RELAX = (18, 0, 7, 16, 11, 12)  # the device setup's smoothers
+# smoothers whose work on a level is a fixed sequence of launches with no
+# host sync (Chebyshev's coefficients are host scalars): a V-cycle's
+# levels >= 1 with one of them run as a CUDA graph on the card
+GRAPH_RELAX = (18, 7, 0, 16, 30, 5, 11, 12)
+# the kernel wrappers whose ``launches`` a graph's replay adds to
+_COUNTED = (stencil_matvec, csr_spmv, dia_matvec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -874,15 +892,116 @@ def coarse_solve(h: AmgHierarchy, f: torch.Tensor) -> torch.Tensor:
 def amg_cycle(h: AmgHierarchy, f: torch.Tensor) -> torch.Tensor:
     """One multigrid cycle with zero initial guess (ref: par_cycle.c:23,
     194-226): V by default, W (mu=2) and F recursively, or the additive
-    family when ``additive`` or ``simple`` is set."""
+    family when ``additive`` or ``simple`` is set.  A 1-D CUDA `f` and a
+    ``graphable`` hierarchy run levels >= 1 as the hierarchy's CUDA
+    graph (``CoarseGraph``).  The result is always a fresh tensor."""
     tok = trace.begin("amg.cycle", device=f) if trace.on else None
-    if h.additive >= 0 or h.simple >= 0:
-        u = _additive_cycle(h, f)
+    if f.is_cuda and f.dim() == 1 and graphable(h) \
+            and not torch.cuda.is_current_stream_capturing():
+        u = _cycle_at(h, 0, f, "V", coarse=_graphed)
     else:
-        u = _cycle_at(h, 0, f, h.cycle_type)
+        amg_cycle.eager += 1
+        if h.additive >= 0 or h.simple >= 0:
+            u = _additive_cycle(h, f)
+        else:
+            u = _cycle_at(h, 0, f, h.cycle_type)
     if tok is not None:
         trace.end(tok)
     return u
+
+
+amg_cycle.captures = 0   # CUDA graphs captured (one a hierarchy)
+amg_cycle.replays = 0    # cycles whose levels >= 1 replayed a graph
+amg_cycle.eager = 0      # cycles run without a graph
+
+
+def graphable(h: AmgHierarchy) -> bool:
+    """Whether the levels >= 1 of `h`'s cycle are one fixed sequence of
+    launches with no host sync, which a CUDA graph can replay: a
+    multiplicative V-cycle of three or more levels smoothed by one of
+    ``GRAPH_RELAX``."""
+    return (h.additive < 0 and h.simple < 0 and h.cycle_type == "V"
+            and len(h.levels) >= 3 and h.relax_type in GRAPH_RELAX)
+
+
+class CoarseGraph:
+    """A V-cycle's levels >= 1 (level 1's pre-smooth down to the coarse
+    solve and back up to level 1's post-smooth) as one CUDA graph on
+    static buffers: `f_in` is level 1's right-hand side, `u_out` its
+    correction, `launches` the (kernel wrapper, launches) one replay
+    runs."""
+
+    def __init__(self, graph, f_in: torch.Tensor, u_out: torch.Tensor,
+                 launches: tuple):
+        self.graph, self.f_in, self.u_out = graph, f_in, u_out
+        self.launches = launches
+
+    def __call__(self, fc: torch.Tensor) -> torch.Tensor:
+        """Level 1's correction for `fc`, in `u_out` until the next
+        replay."""
+        tok = trace.begin("amg.level", level=1, phase="graph") \
+            if trace.on else None
+        self.f_in.copy_(fc)
+        self.graph.replay()
+        if tok is not None:
+            trace.end(tok)
+        for fn, n in self.launches:
+            fn.launches += n
+        amg_cycle.replays += 1
+        return self.u_out
+
+
+def _graphed(h: AmgHierarchy, fc: torch.Tensor) -> torch.Tensor:
+    """Levels >= 1 of `h`'s V-cycle for level 1's right-hand side `fc`:
+    the hierarchy's graph, captured at the first call.  The graphs live
+    in the hierarchy's ``_cycle_graphs`` (not a field: checkpoints and
+    ``dataclasses.replace`` leave them out), keyed by dtype, device and
+    level 1's size; a capture that failed leaves its error message there
+    and the cycles run eagerly."""
+    graphs = h.__dict__.get("_cycle_graphs")
+    if graphs is None:
+        graphs = {}
+        object.__setattr__(h, "_cycle_graphs", graphs)
+    key = (fc.dtype, fc.device, fc.shape[0])
+    if key not in graphs:
+        graphs[key] = _capture(h, fc)
+    g = graphs[key]
+    if isinstance(g, str):
+        amg_cycle.eager += 1
+        return _cycle_at(h, 1, fc, "V")
+    return g(fc)
+
+
+def _capture(h: AmgHierarchy, fc: torch.Tensor):
+    """``_cycle_at(h, 1, ., "V")`` captured as a CoarseGraph with its own
+    memory pool, after one eager run on the capturing stream (cuBLAS's
+    handles and workspaces); or the error message of a capture that
+    raised.  Neither run is counted in the kernels' ``launches`` nor
+    traced."""
+    dev = fc.device
+    counts = [fn.launches for fn in _COUNTED]
+    traced, trace.on = trace.on, False
+    f_in = fc.clone()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    try:
+        with torch.cuda.stream(side):
+            _cycle_at(h, 1, f_in, "V")
+        warm = [fn.launches for fn in _COUNTED]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                u_out = _cycle_at(h, 1, f_in, "V")
+        except RuntimeError as e:   # an op that syncs or cannot be captured
+            return f"{type(e).__name__}: {e}"
+        launches = tuple((fn, fn.launches - w)
+                         for fn, w in zip(_COUNTED, warm))
+    finally:
+        trace.on = traced
+        for fn, c in zip(_COUNTED, counts):
+            fn.launches = c
+    amg_cycle.captures += 1
+    return CoarseGraph(graph, f_in, u_out, launches)
 
 
 def _smooth(h: AmgHierarchy, lvl: AmgLevel, f, u, up: bool):
@@ -934,7 +1053,9 @@ def _additive_cycle(h: AmgHierarchy, f: torch.Tensor) -> torch.Tensor:
 
 
 def _cycle_at(h: AmgHierarchy, l: int, f: torch.Tensor,
-              ctype: str = "V") -> torch.Tensor:
+              ctype: str = "V", coarse=None) -> torch.Tensor:
+    """The cycle from level `l` down; `coarse(h, fc)`, where given, stands
+    in for the V-cycle below level `l`."""
     levels = h.levels
     nl = len(levels)
     if l == nl - 1:
@@ -957,6 +1078,8 @@ def _cycle_at(h: AmgHierarchy, l: int, f: torch.Tensor,
         uc = _cycle_at(h, l + 1, fc, ctype)
         rc = fc - matvec(levels[l + 1].A, uc)
         uc = uc + _cycle_at(h, l + 1, rc, "W" if ctype == "W" else "V")
+    elif coarse is not None:
+        uc = coarse(h, fc)
     else:
         uc = _cycle_at(h, l + 1, fc, "W" if ctype == "W" else "V")
     tok = trace.begin("amg.level", level=l, phase="up") \

@@ -261,3 +261,37 @@ def test_additive_cycle_records_only_the_cycle():
     recs = trace.drain()
     assert len(_named(recs, "amg.cycle")) == res.iters + 1
     assert not _named(recs, "amg.level")
+
+
+def test_graph_replay_is_one_coarse_span(monkeypatch):
+    """A CUDA graph's replay of levels >= 1 (a stand-in graph here) is
+    one ``amg.level`` span, level 1, phase "graph", which the span take
+    files under the coarse levels; it adds the replayed launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hypre_tpu_torch.ops.spmv import csr_spmv
+    from hypre_tpu_torch.solvers.amg import CoarseGraph, amg_cycle
+    from portbench.spans import category
+
+    class Graph:
+        replayed = 0
+
+        def replay(self):
+            self.replayed += 1
+
+    monkeypatch.setattr(csr_spmv, "launches", 10)
+    monkeypatch.setattr(amg_cycle, "replays", 0)
+    g = CoarseGraph(Graph(), torch.zeros(4, dtype=torch.float64),
+                    torch.ones(4, dtype=torch.float64), ((csr_spmv, 3),))
+    fc = torch.arange(4, dtype=torch.float64)
+    trace.enable(mirror=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = g(fc)
+    recs = trace.drain()
+    assert [(r["name"], r["attrs"]) for r in recs] == \
+        [("amg.level", {"level": 1, "phase": "graph"})]
+    assert "amg.level/1/graph" in {e.name for e in prof.events()}
+    assert category("amg.level/1/graph") == "coarse"
+    assert out is g.u_out and torch.equal(g.f_in, fc)
+    assert g.graph.replayed == 1
+    assert csr_spmv.launches == 13 and amg_cycle.replays == 1
